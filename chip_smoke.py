@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Drive the repro_torch store's main path on one NVIDIA GPU and check it.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py [--entries N] [--seed S]
+
+Phases, one JSON line each; any failure raises and the exit code is not 0:
+  1. device   — the card's name and power limit;
+  2. build    — nvcc builds every kernel of src/repro_torch/csrc;
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                at the shapes the main path gives it, exactly equal, timed
+                beside its memory bound (and a library call where one
+                computes the same function);
+  4. equivalence — one seeded op sequence on a CUDA store and a CPU store:
+                bit-identical trees, IOStats and multi_get answers;
+  5. db_bench — fillrandom then readrandom at LevelDB's documented
+                defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
+                write buffer, 10 bits per key), every answer checked;
+  6. kernel launches on phase 5, each of which must be > 0.
+The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
+script exits non-zero before any phase runs.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, NVIDIA data sheet
+# The data sheet gives no integer ALU peak; the fp32 CUDA-core peak (67 TFLOP/s)
+# is the highest non-tensor rate, so ops over it stay a lower bound.
+ALU_OPS_PER_S = 67e12
+HASH_OPS = 30                  # hash_pair: two mix32 chains, xors, or
+PROBE_OPS = 6                  # one bit test: mul, add, mod, shift, and, test
+ROOT = Path(__file__).resolve().parent
+
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "bloom_probe": ("src/repro_torch/csrc/bloom.cu",
+                    "src/repro/kernels/bloom_probe.py:60"),
+    "bloom_build": ("src/repro_torch/csrc/bloom.cu",
+                    "src/repro/kernels/bloom_probe.py:36"),
+    "merge_pair": ("src/repro_torch/csrc/merge.cu",
+                   "src/repro/kernels/merge_path.py:77"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    ALU rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def time_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(torch, got, want) -> int:
+    """Largest absolute difference of two integer tensors (0 = equal);
+    the kernels are exact, so the tolerance is 0."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if torch.equal(got, want):
+        return 0
+    return float((got.double() - want.double()).abs().max())
+
+
+def user_values(keys: np.ndarray, width: int = 100) -> list:
+    """The value stored under each u64 key: its 8 little-endian bytes,
+    repeated to ``width`` bytes (so an answer names its key)."""
+    mat = np.tile(keys.astype("<u8").view(np.uint8).reshape(-1, 8),
+                  -(-width // 8))[:, :width]
+    flat = mat.tobytes()
+    return [flat[i:i + width] for i in range(0, len(flat), width)]
+
+
+# ------------------------------------------------------------ phase 3
+def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
+    """Every kernel against its plain version at the main path's shapes;
+    returns the headline row per kernel."""
+    rows = {}
+    # bloom build: the filter of the deepest run, 10M keys at 10 bits/key
+    n_keys, bpk = 10_000_000, 10
+    keys = ops.keys_to_device(rng.integers(0, 2**64 - 1, n_keys,
+                                           dtype=np.uint64), dev)
+    m_words = -(-n_keys * bpk // 32)
+    k = round(bpk * np.log(2))
+    got = bloom.build_cuda(keys, m_words, k)
+    want = bloom.build_plain(keys, m_words, k)
+    err = max_abs_err(torch, got, want)
+    ms = time_ms(torch, lambda: bloom.build_cuda(keys, m_words, k), 10)
+    plain = time_ms(torch, lambda: bloom.build_plain(keys, m_words, k), 3)
+    rows["bloom_build"] = dict(
+        shape=f"{n_keys} keys, {m_words} words, k={k}", max_abs_err=err,
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(n_keys * 8 + m_words * 4,
+                n_keys * (HASH_OPS + k * PROBE_OPS)))
+    emit({"phase": "kernel", "kernel": "bloom_build", **rows["bloom_build"]})
+    # bloom probe: one 65,536-key wave against that filter, half members
+    bits = got
+    n_q = 65_536
+    q = torch.cat([keys[torch.randperm(n_keys, device=dev)[:n_q // 2]],
+                   ops.keys_to_device(rng.integers(0, 2**64 - 1, n_q // 2,
+                                                   dtype=np.uint64), dev)])
+    got = bloom.probe_cuda(q, bits, k)
+    want = bloom.probe_plain(q, bits, k)
+    err = max_abs_err(torch, got, want)
+    # bytes the probe needs: keys in, flags out, and the distinct filter
+    # words read up to each key's first clear bit
+    h1, h2 = bloom.hash_pair(q)
+    pos = torch.stack([((h1 + i * h2) & 0xFFFFFFFF) % (m_words * 32)
+                       for i in range(k)], 1)
+    bit = ((bits[pos >> 5].to(torch.int64) & 0xFFFFFFFF) >> (pos & 31)) & 1
+    needed = torch.cat([torch.ones_like(bit[:, :1]),
+                        torch.cumprod(bit, 1)[:, :-1]], 1).bool()
+    words = int(torch.unique(pos[needed] >> 5).numel())
+    ms = time_ms(torch, lambda: bloom.probe_cuda(q, bits, k), 50)
+    plain = time_ms(torch, lambda: bloom.probe_plain(q, bits, k), 10)
+    rows["bloom_probe"] = dict(
+        shape=f"{n_q} keys, {m_words} words, k={k}", max_abs_err=err, ms=ms,
+        plain_ms=plain, library_ms=None,
+        **bound(n_q * 9 + words * 4,
+                n_q * HASH_OPS + int(needed.sum()) * PROBE_OPS))
+    emit({"phase": "kernel", "kernel": "bloom_probe", **rows["bloom_probe"]})
+    del keys, bits, q, pos, bit, needed
+    # merge: balanced with shared keys, skewed, and the u64 maximum
+    top = np.array([2**64 - 1], dtype=np.uint64)
+    cases = []
+    shared = rng.integers(0, 2**64 - 1, 1_000_000, dtype=np.uint64)
+    a = np.unique(np.concatenate([shared, rng.integers(
+        0, 2**64 - 1, 4_000_000, dtype=np.uint64), top]))
+    b = np.unique(np.concatenate([shared, rng.integers(
+        0, 2**64 - 1, 4_000_000, dtype=np.uint64), top]))
+    cases.append(("5M+5M shared", a, b))
+    cases.append(("40k+10M skewed", np.unique(rng.integers(
+        0, 2**64 - 1, 40_000, dtype=np.uint64)), np.unique(rng.integers(
+            0, 2**64 - 1, 10_000_000, dtype=np.uint64))))
+    cases.append(("u64 max", np.array([0, 5, 2**63, 2**64 - 1], np.uint64),
+                  np.array([2**32 - 1, 5, 2**63 - 1, 2**64 - 1], np.uint64)))
+    for name, a, b in cases:
+        ta, tb = ops.keys_to_device(np.sort(a), dev), \
+            ops.keys_to_device(np.sort(b), dev)
+        gk, gs = merge.merge_pair_cuda(ta, tb)
+        wk, ws = merge.merge_pair_plain(ta, tb)
+        err = max(max_abs_err(torch, gk, wk), max_abs_err(torch, gs, ws))
+        n = ta.numel() + tb.numel()
+        row = dict(shape=name, max_abs_err=err,
+                   ms=time_ms(torch, lambda: merge.merge_pair_cuda(ta, tb)),
+                   plain_ms=time_ms(torch,
+                                    lambda: merge.merge_pair_plain(ta, tb), 5),
+                   **bound(n * 8 + n * 16, n * 4 + 5 * (
+                       ta.numel() * math.ceil(math.log2(tb.numel() + 1))
+                       + tb.numel() * math.ceil(math.log2(ta.numel() + 1)))),
+                   library_ms=time_ms(torch, lambda: torch.sort(
+                       torch.cat([ta, tb]), stable=True)))
+        emit({"phase": "kernel", "kernel": "merge_pair", **row})
+        rows.setdefault("merge_pair", row)
+        if err:
+            raise AssertionError(f"merge_pair differs from its plain version "
+                                 f"on {name}: max abs error {err}")
+    for name, row in rows.items():
+        if row["max_abs_err"]:
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"max abs error {row['max_abs_err']}")
+    return rows
+
+
+# ------------------------------------------------------------ phase 4
+def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
+    """One seeded op sequence on a CUDA store and a CPU store."""
+    cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
+                       bits_per_key=10)
+    stores = [rt.LSMStore(cfg, device="cuda"), rt.LSMStore(cfg, device="cpu")]
+    space = n_entries // 2
+    keys = rng.integers(0, space, n_entries, dtype=np.uint64)
+    keys[:5] = [0, 2**32 - 1, 2**63 - 1, 2**63, 2**64 - 1]
+    lens = rng.integers(0, 120, n_entries)
+    vals = [bytes([int(k) & 0xFF]) * int(ln) for k, ln in zip(keys, lens)]
+    dels = rng.choice(keys, n_entries // 20)
+    load_s = []
+    for s in stores:
+        t0 = time.perf_counter()
+        s.put_batch(keys[:n_entries // 2].tolist(), vals[:n_entries // 2])
+        s.delete_batch(dels.tolist())
+        for k in keys[n_entries // 2:n_entries // 2 + 500].tolist():
+            s.put(k, b"single")
+        s.delete(int(keys[0]))
+        s.put_batch(keys[n_entries // 2:].tolist(), vals[n_entries // 2:])
+        s.flush()
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    batches = [rng.integers(0, space * 2, m, dtype=np.uint64).tolist()
+               for m in (0, 1, 700, 65_536)] + [keys[:4096].tolist()]
+    answers = [[s.multi_get(b) for b in batches] for s in stores]
+    gets = [[s.get(int(k)) for k in keys[:64]] for s in stores]
+    cols = [rt.columns_of(s) for s in stores]
+    stats = [dataclasses.asdict(s.stats) for s in stores]
+    same_tree = len(cols[0]["levels"]) == len(cols[1]["levels"]) and all(
+        len(la) == len(lb) and all(
+            ra.keys() == rb.keys() and all(
+                np.array_equal(ra[f], rb[f]) and np.asarray(ra[f]).shape
+                == np.asarray(rb[f]).shape for f in ra)
+            for ra, rb in zip(la, lb))
+        for la, lb in zip(cols[0]["levels"], cols[1]["levels"]))
+    out = dict(phase="equivalence", entries=n_entries,
+               runs=sum(len(lvl) for lvl in cols[0]["levels"]),
+               levels=stores[0].num_levels_in_use,
+               compactions=stats[0]["compactions"],
+               cuda_load_s=load_s[0], cpu_load_s=load_s[1],
+               same_tree=same_tree, same_stats=stats[0] == stats[1],
+               same_answers=answers[0] == answers[1] and gets[0] == gets[1],
+               same_memtable=cols[0]["memtable"] == cols[1]["memtable"])
+    emit(out)
+    if not (same_tree and out["same_stats"] and out["same_answers"]
+            and out["same_memtable"]):
+        raise AssertionError("CUDA store differs from the CPU store")
+    return out
+
+
+# ------------------------------------------------------------ phase 5
+def profile_window(torch, fn) -> dict:
+    """Wall time of ``fn`` and the device time of the kernels and copies
+    it ran (torch.profiler), hence the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    if not by_name:     # no device-side events: read the op averages
+        by_name = {e.key: e.self_device_time_total
+                   for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0) > 0}
+    busy_us = sum(by_name.values())
+    if not by_name:
+        return dict(wall_ms=wall_us / 1e3, device_busy_ms="not measured")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1 - busy_us / wall_us,
+                top_device_ms={name[:80]: us / 1e3 for name, us in top})
+
+
+def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
+    """fillrandom then readrandom at LevelDB's db_bench defaults."""
+    cfg = rt.LSMConfig(policy="garnering", T=2.0, c=0.8,
+                       memtable_bytes=4 << 20, base_level_bytes=10 << 20,
+                       l0_compaction_trigger=4, bits_per_key=10,
+                       block_size=4096)
+    store = rt.LSMStore(cfg)   # cuda:0
+    torch.cuda.reset_peak_memory_stats()
+    keys = rng.integers(0, 2**64 - 1, n_entries, dtype=np.uint64)
+    keys = keys[np.sort(np.unique(keys, return_index=True)[1])]  # distinct
+    sorted_keys = np.sort(keys)
+    # time inside compactions and inside flush's run build, device synced
+    spent = {"compaction": 0.0, "flush_build": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    store._apply = timed("compaction", store._apply)
+    store.memtable.to_run = timed("flush_build", store.memtable.to_run)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunk = 500_000
+    for i in range(0, keys.size, chunk):
+        kc = keys[i:i + chunk]
+        store.put_batch(kc.tolist(), user_values(kc))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    deleted = rng.choice(keys, keys.size // 100, replace=False)
+    store.delete_batch(deleted.tolist())
+    torch.cuda.synchronize()
+    load_stats = store.stats
+    live = np.setdiff1d(keys, deleted)
+    wave, n_waves = 65_536, 32
+    before = store.stats
+    wave_s, checked = [], 0
+    for w in range(n_waves + 1):          # wave 0 warms up, untimed
+        parts = [rng.choice(live, wave // 2),
+                 rng.integers(0, 2**64 - 1, wave // 4, dtype=np.uint64),
+                 rng.choice(deleted, wave // 4)]
+        at = np.minimum(np.searchsorted(sorted_keys, parts[1]), keys.size - 1)
+        if (sorted_keys[at] == parts[1]).any():
+            raise AssertionError("absent key drawn from the live set")
+        q = np.concatenate(parts)
+        t = time.perf_counter()
+        got = store.multi_get(q.tolist())
+        dt = time.perf_counter() - t
+        want = user_values(parts[0]) + [None] * (wave // 2)
+        if got != want:
+            bad = sum(g != x for g, x in zip(got, want))
+            raise AssertionError(f"wave {w}: {bad} wrong answers")
+        if w:
+            wave_s.append(dt)
+            checked += q.size
+    read_stats = store.stats.delta(before)
+    # three more checked waves under the profiler: the device's idle share
+    waves = [(rng.choice(live, wave // 2), rng.choice(deleted, wave // 2))
+             for _ in range(3)]
+    answers = []
+    read_profile = profile_window(torch, lambda: answers.extend(
+        store.multi_get(np.concatenate(w).tolist()) for w in waves))
+    if answers != [user_values(lv) + [None] * (wave // 2) for lv, _ in waves]:
+        raise AssertionError("wrong answers in the profiled waves")
+    run_bytes = sum(t.numel() * t.element_size()
+                    for lvl in store._levels for r in lvl
+                    for t in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
+                              r.fence_keys, r.block_crcs, r.bloom.bits))
+    out = dict(
+        phase="db_bench", entries=int(keys.size), deleted=int(deleted.size),
+        value_bytes=100, key_bytes=cfg.key_bytes,
+        config=dataclasses.asdict(cfg), load_s=load_s,
+        load_entries_per_s=keys.size / load_s,
+        compaction_s=spent["compaction"], flush_build_s=spent["flush_build"],
+        host_write_path_s=load_s - spent["compaction"] - spent["flush_build"],
+        compaction_mb_per_s=load_stats.bytes_compacted / 1e6
+        / spent["compaction"] if spent["compaction"] else None,
+        bytes_compacted=load_stats.bytes_compacted,
+        write_amp=load_stats.write_amplification(),
+        read_keys=checked, read_s=sum(wave_s),
+        multi_get_keys_per_s=checked / sum(wave_s),
+        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
+        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
+        read_profile_3_waves=read_profile,
+        levels_in_use=store.num_levels_in_use,
+        level_summary=store.level_summary(),
+        run_bytes_on_device=run_bytes,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        read_stats={k: v for k, v in dataclasses.asdict(read_stats).items()
+                    if v})
+    emit(out)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--entries", type=int, default=10_000_000,
+                    help="phase-5 entry count (10M by default)")
+    ap.add_argument("--equiv-entries", type=int, default=200_000,
+                    help="phase-4 entry count")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing is run on the CPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import repro_torch as rt
+        from repro_torch import _build
+        from repro_torch.kernels import bloom, merge, ops
+    except ImportError as e:
+        print(f"chip_smoke: repro_torch not found beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    t = time.perf_counter()
+    built = _build.build_all(force=True)
+    emit({"phase": "build", "built": built, "s": time.perf_counter() - t,
+          "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, log in _build.build_logs.items()}})
+    rng = np.random.default_rng(args.seed)
+    rows = kernel_phase(torch, ops, bloom, merge, rng, dev)
+    torch.cuda.empty_cache()
+    equivalence_phase(torch, rt, rng, args.equiv_entries)
+    torch.cuda.empty_cache()
+    dbbench_phase(torch, rt, ops, rng, args.entries)
+    launches = ops.launch_counts()
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name],
+                    max_abs_err=rows[name]["max_abs_err"],
+                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
+                    bound_ms=rows[name]["bound_ms"],
+                    bound_by=rows[name]["bound_by"],
+                    library_ms=rows[name]["library_ms"])
+               for name, (src, rep) in KERNELS.items()]
+    emit({"kernels": kernels})
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on phase 5: {idle}")
+    emit({"phase": "done", "s": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                     "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""PyTorch + CUDA port of the Autumn LSM store (the ``repro`` package is the
+JAX reference and is never imported here).
+
+The store's runs live on the device; the bloom probe, the bloom build and
+the compaction pair merge are hand-written CUDA kernels for Hopper
+(``csrc/``), each beside its plain PyTorch version in ``kernels/``.
+"""
+from .core import LSMConfig, LSMStore, columns_of, store_from_columns
+
+__all__ = ["LSMConfig", "LSMStore", "columns_of", "store_from_columns"]

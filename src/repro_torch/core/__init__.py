@@ -1,0 +1,34 @@
+"""The Autumn LSM core on PyTorch: the synchronous store with its sorted
+runs on the device.
+
+Public API:
+    LSMStore, LSMConfig           — the storage engine
+    make_policy, Garnering, ...   — merge policies (paper §2.3/§3.1)
+    BloomFilter, allocate_fprs    — device filters + Monkey/Autumn allocation
+    SortedRun, build_run, merge_runs — device runs and compaction
+    IOStats, StatsHub             — block-I/O cost accounting
+    store_from_columns, columns_of — state carried to and from numpy columns
+"""
+from .bloom import (BloomFilter, allocate_fprs, bits_for_fpr,
+                    bloom_geometry, theoretical_fpr)
+from .convert import columns_of, store_from_columns
+from .engine import LSMConfig, LSMStore
+from .faults import CorruptionError, crc32c, crc32c_rows, crc32c_rows_torch
+from .manifest import Manifest, RunStorage, Version
+from .memtable import Memtable, WriteAheadLog
+from .policy import (POLICIES, CompactionTask, Garnering, LazyLeveling,
+                     Leveling, MergePolicy, QLSMBush, Tiering, make_policy)
+from .run import SortedRun, build_run, levels_bit_equal, merge_runs
+from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats, StatsHub
+
+__all__ = [
+    "LSMStore", "LSMConfig", "IOStats", "StatsHub",
+    "BloomFilter", "allocate_fprs", "bits_for_fpr", "bloom_geometry",
+    "theoretical_fpr", "Manifest", "RunStorage", "Version", "Memtable",
+    "WriteAheadLog", "POLICIES", "CompactionTask", "Garnering",
+    "LazyLeveling", "Leveling", "MergePolicy", "QLSMBush", "Tiering",
+    "make_policy", "SortedRun", "build_run", "merge_runs",
+    "levels_bit_equal", "store_from_columns", "columns_of",
+    "CorruptionError", "crc32c", "crc32c_rows", "crc32c_rows_torch",
+    "BLOCK_SIZE", "KEY_BYTES", "TOMBSTONE_LEN",
+]

@@ -1,0 +1,320 @@
+"""Immutable sorted runs with their columns on the device.
+
+Counterpart of ``repro.core.run``.  A run stores its entries as parallel
+tensors on one device, sorted by key:
+  keys  : int64 order-mapped u64 keys (``k ^ (1 << 63)``, strictly
+          increasing — duplicates are resolved at build time, newest
+          sequence number wins, matching LSM merge semantics)
+  seqs  : int64 sequence numbers
+  vlens : int32 value lengths; TOMBSTONE_LEN marks a delete marker
+  vals  : uint8 (n, Vmax) padded value payload
+plus ``block_of`` (int64 block id of each entry), ``fence_keys`` (first key
+of each block), ``block_crcs`` (int64 CRC-32C per block, in [0, 2^32)) and
+the bloom filter's bits.  The host keeps only what planning reads:
+``run_id``, ``len``, ``data_bytes``, ``n_blocks``, ``min_key``, ``max_key``,
+so the policy and the manifest never wait on the device.
+
+Point reads probe the filter with the bloom kernel, locate candidates with
+``torch.searchsorted`` over the keys (the fence pointers give each its one
+block), and copy hit values to the host in one transfer per run.
+Compaction merges pairs of runs with the merge kernel in a Huffman-ordered
+ladder, drops shadowed versions on the device, and gathers every column
+once at the end.
+"""
+from __future__ import annotations
+
+import heapq
+import itertools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.merge import FROM_B
+from .bloom import BloomFilter
+from .faults import crc32c_rows_torch
+from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats
+
+_run_ids = itertools.count()
+_SIGN = 1 << 63
+
+
+def _entry_crcs(keys: torch.Tensor, seqs: torch.Tensor, vlens: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """CRC-32C per entry over its canonical bytes, as the reference:
+    key(8 LE, the u64 key) | seq(8 LE) | vlen(4 LE, signed — tombstones
+    included) | value[:max(vlen,0)]."""
+    n = keys.numel()
+    user_keys = keys ^ -_SIGN          # undo the order map: the u64 bits
+    mat = torch.cat([user_keys.view(torch.uint8).view(n, 8),
+                     seqs.view(torch.uint8).view(n, 8),
+                     vlens.view(torch.uint8).view(n, 4), vals], dim=1)
+    return crc32c_rows_torch(mat, 20 + vlens.clamp(min=0).to(torch.int64))
+
+
+def _xor_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix XOR (log-step doubling; torch has no cumulative
+    XOR)."""
+    s = 1
+    while s < x.numel():
+        y = x.clone()
+        y[s:] ^= x[:-s]
+        x = y
+        s *= 2
+    return x
+
+
+class SortedRun:
+    __slots__ = ("run_id", "keys", "seqs", "vlens", "vals", "block_of",
+                 "fence_keys", "n_blocks", "data_bytes", "block_size",
+                 "bloom", "block_crcs", "min_key", "max_key", "_len")
+
+    def __init__(self, keys: torch.Tensor, seqs: torch.Tensor,
+                 vlens: torch.Tensor, vals: torch.Tensor,
+                 bits_per_key: float = 0.0, block_size: int = BLOCK_SIZE,
+                 key_bytes: int = KEY_BYTES,
+                 bloom_geometry: Optional[Tuple[int, int]] = None):
+        """Columns must already be sorted and unique (see :func:`build_run`).
+        ``bloom_geometry=(m_bits, k)`` rebuilds a filter of a known shape
+        instead of deriving it from ``bits_per_key``."""
+        self.block_size = block_size
+        self.run_id = next(_run_ids)
+        self.keys, self.seqs, self.vlens, self.vals = keys, seqs, vlens, vals
+        n = self._len = int(keys.numel())
+        entry_sizes = key_bytes + vlens.clamp(min=0).to(torch.int64)
+        cum = torch.cumsum(entry_sizes, 0)
+        # Entry i lives in the block containing its *starting* byte.
+        self.block_of = (cum - entry_sizes) // block_size
+        if n:
+            # the one read-back of a build: what the host plans with
+            data_bytes, last_block, lo, hi = torch.stack(
+                [cum[-1], self.block_of[-1], keys[0], keys[-1]]).tolist()
+            self.data_bytes = data_bytes
+            self.n_blocks = last_block + 1
+            self.min_key, self.max_key = lo + _SIGN, hi + _SIGN
+            blocks = torch.arange(self.n_blocks, device=keys.device)
+            first_idx = torch.searchsorted(self.block_of, blocks)
+            # Fence pointer = first key of each block (in-memory index).
+            self.fence_keys = keys[first_idx]
+            # Per-block checksum = XOR of member-entry CRC-32Cs; a block
+            # spanned entirely by a giant neighbouring entry has none: 0.
+            acc = F.pad(_xor_scan(_entry_crcs(keys, seqs, vlens, vals)), (1, 0))
+            end_idx = torch.searchsorted(self.block_of, blocks, right=True)
+            self.block_crcs = acc[end_idx] ^ acc[first_idx]
+        else:
+            self.data_bytes = self.n_blocks = self.min_key = self.max_key = 0
+            self.fence_keys = keys.new_zeros(0)
+            self.block_crcs = keys.new_zeros(0)
+        self.bloom = BloomFilter(keys, bits_per_key, bloom_geometry)
+
+    # ------------------------------------------------------------------ size
+    def __len__(self) -> int:
+        return self._len
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    def bit_equal(self, other: "SortedRun") -> bool:
+        """Bit-for-bit payload equality: keys/seqs/vlens/vals/bloom bits
+        (compared on the CPU, so runs on different devices compare)."""
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in (
+            (self.keys, other.keys), (self.seqs, other.seqs),
+            (self.vlens, other.vlens), (self.vals, other.vals),
+            (self.bloom.bits, other.bloom.bits)))
+
+    # ----------------------------------------------------------------- reads
+    def point_get_batch(self, keys: torch.Tensor, stats: IOStats,
+                        use_bloom: bool = True
+                        ) -> Tuple[np.ndarray, List[Optional[bytes]],
+                                   torch.Tensor]:
+        """Vectorized point lookup of order-mapped ``keys`` (on this run's
+        device).
+
+        Returns ``(found, values, rest)``: found[i] True means key i's
+        newest version lives in this run (values[i] is its bytes, or None
+        for a tombstone); ``rest`` is ``keys[~found]``, still on the device.
+        One bloom kernel launch + one searchsorted over the whole batch,
+        one wait for the hit count and one device-to-host copy; aggregate
+        IOStats accounting is identical to the reference's.
+        """
+        n = keys.numel()
+        found = np.zeros(n, dtype=bool)
+        values: List[Optional[bytes]] = [None] * n
+        if n == 0 or self._len == 0:
+            return found, values, keys
+        probing = use_bloom and self.bloom.k > 0
+        if probing:
+            maybe = self.bloom.may_contain(keys)
+        idx = torch.searchsorted(self.keys, keys)
+        idxc = idx.clamp(max=self._len - 1)
+        hit = (idx < self._len) & (self.keys[idxc] == keys)
+        if probing:
+            hit &= maybe
+        hit_pos = torch.nonzero(hit).squeeze(1)     # waits for the device
+        n_hit = hit_pos.numel()
+        rows = idxc[hit_pos]
+        n_maybe = maybe.sum() if probing else hit_pos.new_tensor(n)
+        # one transfer: the candidate count, hit positions and value
+        # lengths (int64), then the hit rows' values
+        meta = torch.cat([n_maybe.view(1), hit_pos,
+                          self.vlens[rows].to(torch.int64)])
+        n_meta = meta.numel()
+        buf = torch.cat([meta.view(torch.uint8),
+                         self.vals[rows].reshape(-1)]).cpu().numpy()
+        meta = buf[:n_meta * 8].view(np.int64)
+        n_cand = int(meta[0])
+        if probing:
+            stats.bloom_probes += n
+            stats.bloom_negatives += n - n_cand
+        if n_cand == 0:
+            return found, values, keys
+        # Fence pointers give each candidate its unique block: 1 read apiece.
+        stats.blocks_read += n_cand
+        stats.false_positives += n_cand - n_hit
+        pos = meta[1:1 + n_hit]
+        lens = meta[1 + n_hit:].tolist()
+        found[pos] = True
+        vmax = self.vals.shape[1]
+        flat = buf[n_meta * 8:].tobytes()
+        for o, (p, ln) in enumerate(zip(pos.tolist(), lens)):
+            if ln != TOMBSTONE_LEN:
+                values[p] = flat[o * vmax:o * vmax + ln]
+        rest = keys[~hit] if n_hit else keys
+        return found, values, rest
+
+    def point_get(self, key: int, stats: IOStats,
+                  use_bloom: bool = True) -> Tuple[bool, Optional[bytes]]:
+        """(found, value_or_None_if_tombstone) of one u64 key: the batch
+        path on one key, with the same accounting as the reference's scalar
+        ``point_get``."""
+        found, values, _ = self.point_get_batch(
+            ops.keys_to_device([key], self.device), stats, use_bloom)
+        return bool(found[0]), values[0]
+
+
+def levels_bit_equal(levels_a: Sequence[Sequence[SortedRun]],
+                     levels_b: Sequence[Sequence[SortedRun]]) -> bool:
+    """Bit-for-bit tree equality: same level count, same runs per level,
+    every run pair :meth:`SortedRun.bit_equal`."""
+    if len(levels_a) != len(levels_b):
+        return False
+    return all(len(la) == len(lb) and all(ra.bit_equal(rb)
+                                          for ra, rb in zip(la, lb))
+               for la, lb in zip(levels_a, levels_b))
+
+
+# --------------------------------------------------------------------- build
+def build_run(keys: torch.Tensor, seqs: torch.Tensor, vlens: torch.Tensor,
+              vals: torch.Tensor, bits_per_key: float = 0.0,
+              assume_unique_sorted: bool = False,
+              drop_tombstones: bool = False,
+              block_size: int = BLOCK_SIZE, key_bytes: int = KEY_BYTES,
+              bloom_geometry: Optional[Tuple[int, int]] = None) -> SortedRun:
+    """Sort by key, deduplicate keeping the newest seq, optionally GC
+    deletes.  Columns are tensors on one device; ``vals`` is (n, Vmax)."""
+    if not assume_unique_sorted and keys.numel():
+        # Stable sort by (key, -seq): newest version of each key comes first.
+        by_seq = torch.argsort(seqs, descending=True, stable=True)
+        order = by_seq[torch.argsort(keys[by_seq], stable=True)]
+        keys, seqs, vlens, vals = keys[order], seqs[order], vlens[order], vals[order]
+        keep = torch.ones_like(keys, dtype=torch.bool)
+        keep[1:] = keys[1:] != keys[:-1]
+        keys, seqs, vlens, vals = keys[keep], seqs[keep], vlens[keep], vals[keep]
+    if drop_tombstones and keys.numel():
+        live = vlens != TOMBSTONE_LEN
+        keys, seqs, vlens, vals = keys[live], seqs[live], vlens[live], vals[live]
+    return SortedRun(keys, seqs, vlens, vals, bits_per_key=bits_per_key,
+                     block_size=block_size, key_bytes=key_bytes,
+                     bloom_geometry=bloom_geometry)
+
+
+def _account_merge_output(out: SortedRun, stats: IOStats) -> SortedRun:
+    """Write-side cost model, shared by every merge path (paper §2.2)."""
+    stats.blocks_written += out.n_blocks
+    stats.entries_compacted += len(out)
+    stats.bytes_compacted += out.data_bytes
+    stats.compactions += 1
+    return out
+
+
+def _merge_pair(a, b, seqs_cat: torch.Tensor):
+    """Merge two (keys, gid) nodes of the ladder into one.
+
+    Inputs have strictly increasing keys; the output does too (the newer
+    sequence number wins each duplicate).  Nodes carry only the key column
+    and a *global index* into the concatenated inputs; the interleave is
+    the merge kernel (a-first on equal keys), and sequence numbers are read
+    only to settle duplicates.
+    """
+    ka, ga = a
+    kb, gb = b
+    na = ka.numel()
+    if na == 0:
+        return b
+    if kb.numel() == 0:
+        return a
+    keys, src = ops.merge_pair(ka, kb)
+    from_b = (src & FROM_B) != 0
+    row = src & (FROM_B - 1)
+    gid = torch.cat([ga, gb])[torch.where(from_b, row + na, row)]
+    # Dedup: a key occurs at most twice and duplicates are adjacent; the
+    # newer seq wins (equal-seq ties keep the first occurrence).
+    dup = keys[1:] == keys[:-1]
+    second_newer = seqs_cat[gid[1:]] > seqs_cat[gid[:-1]]
+    keep = torch.ones_like(keys, dtype=torch.bool)
+    keep[:-1] &= ~(dup & second_newer)
+    keep[1:] &= ~(dup & ~second_newer)
+    return keys[keep], gid[keep]
+
+
+def merge_runs(runs: Sequence[SortedRun], bits_per_key: float,
+               stats: IOStats, drop_tombstones: bool = False,
+               block_size: int = BLOCK_SIZE,
+               key_bytes: int = KEY_BYTES) -> SortedRun:
+    """K-way compaction merge of non-empty ``runs`` (one device).
+
+    A Huffman-ordered tournament of pairwise merges over (key, global-index)
+    columns, always through the merge kernel (the reference's small-merge
+    shortcut is never taken, so the kernel runs on every compaction; the
+    output is bit-identical either way), then one gather per column.
+
+    Cost model: every input block is read, every output block written; the
+    entry/byte counters feed write-amplification (paper §2.2).
+    """
+    if not runs:
+        raise ValueError("merge_runs needs at least one run")
+    for r in runs:
+        stats.blocks_read += r.n_blocks
+    seqs_cat = torch.cat([r.seqs for r in runs])
+    offs = np.cumsum([0] + [len(r) for r in runs])
+    dev = runs[0].device
+    # Always merge the two smallest nodes, so a dominant run (the usual dst
+    # level) joins only the final merges.
+    heap = [(len(r), i, (r.keys, torch.arange(offs[i], offs[i + 1],
+                                              device=dev)))
+            for i, r in enumerate(runs)]
+    heapq.heapify(heap)
+    tick = len(runs)
+    while len(heap) > 1:
+        _, ia, a = heapq.heappop(heap)
+        _, ib, b = heapq.heappop(heap)
+        if ib < ia:          # keep earlier-run-first orientation for ties
+            a, b = b, a
+        merged = _merge_pair(a, b, seqs_cat)
+        heapq.heappush(heap, (merged[0].numel(), tick, merged))
+        tick += 1
+    keys, gid = heap[0][2]
+    vlens = torch.cat([r.vlens for r in runs])[gid]
+    if drop_tombstones:
+        live = vlens != TOMBSTONE_LEN
+        keys, vlens, gid = keys[live], vlens[live], gid[live]
+    vmax = max(r.vals.shape[1] for r in runs)
+    vals = torch.cat([F.pad(r.vals, (0, vmax - r.vals.shape[1]))
+                      for r in runs])[gid]
+    out = SortedRun(keys, seqs_cat[gid], vlens, vals,
+                    bits_per_key=bits_per_key, block_size=block_size,
+                    key_bytes=key_bytes)
+    return _account_merge_output(out, stats)

@@ -1,0 +1,218 @@
+"""repro_torch kernels' plain versions vs the JAX reference, bit for bit.
+
+Every lane here is integer, so every comparison is exact (tolerance 0).
+The reference's Pallas kernels run in interpret mode, as its own tests run
+them; the CUDA kernels themselves are held against these plain versions on
+the card (tests/test_torch_boundary.py, chip_smoke.py).
+"""
+import importlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import bloom as ref_bloom
+from repro.core.faults import crc32c_rows as ref_crc32c_rows
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.core.bloom import BloomFilter
+from repro_torch.core.faults import crc32c_rows_torch
+from repro_torch.kernels import bloom, merge, ops
+
+# the package exports a function of the same name as this module
+ref_bloom_probe = importlib.import_module("repro.kernels.bloom_probe")
+
+# Six xdist workers share 8 cores with the reference's timing-bounded
+# property tests: one intra-op thread per worker keeps them on time.
+torch.set_num_threads(1)
+
+EDGE = np.array([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**64 - 1],
+                dtype=np.uint64)
+
+
+def dev(keys) -> torch.Tensor:
+    return ops.keys_to_device(keys, "cpu")
+
+
+def words(bits: np.ndarray) -> torch.Tensor:
+    """Reference uint32 filter words as the port's int32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint32)
+                            .view(np.int32))
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.uint32)
+
+
+def test_key_map_round_trips_and_orders():
+    rng = np.random.default_rng(0)
+    keys = np.concatenate([EDGE, rng.integers(0, 2**64 - 1, 1000,
+                                              dtype=np.uint64)])
+    mapped = ops.to_order(keys)
+    np.testing.assert_array_equal(ops.from_order(mapped), keys)
+    np.testing.assert_array_equal(np.argsort(mapped, kind="stable"),
+                                  np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(ops.keys_from_device(dev(keys)), keys)
+
+
+def test_hash_pair_matches_both_reference_hashes():
+    rng = np.random.default_rng(1)
+    keys = np.concatenate([EDGE, rng.integers(0, 2**64 - 1, 4096,
+                                              dtype=np.uint64)])
+    h1, h2 = bloom.hash_pair(dev(keys))
+    r1, r2 = ref_bloom.hash_pair(keys)
+    lo, hi = ref_ops.split_u64(keys)
+    k1, k2 = ref_bloom_probe.hash_pair(lo, hi)
+    np.testing.assert_array_equal(u32(h1), r1)
+    np.testing.assert_array_equal(u32(h2), r2)
+    np.testing.assert_array_equal(u32(h1), np.asarray(k1))
+    np.testing.assert_array_equal(u32(h2), np.asarray(k2))
+    assert int(h1.max()) < 2**32 and int(h1.min()) >= 0
+
+
+@pytest.mark.parametrize("n,m_words,k", [(512, 128, 5), (2048, 1024, 7),
+                                         (4096, 64, 3)])
+def test_probe_and_build_sweep_vs_pallas_and_ref(n, m_words, k):
+    rng = np.random.default_rng(n + k)
+    keys = rng.integers(0, 2**63, n, dtype=np.uint64)
+    lo, hi = ref_ops.split_u64(keys)
+    bits = ref_ref.bloom_build_ref(np.asarray(lo), np.asarray(hi), m_words, k)
+    np.testing.assert_array_equal(
+        bloom.build_plain(dev(keys), m_words, k).numpy().view(np.uint32), bits)
+    # the Pallas wrapper takes whole query blocks; the jnp oracle any size
+    queries = np.concatenate([keys, rng.integers(0, 2**64 - 1, n,
+                                                 dtype=np.uint64)])
+    got = bloom.probe_plain(dev(queries), words(bits), k).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_ops.bloom_probe(queries, jnp.asarray(bits), k)))
+    queries = np.concatenate([queries, EDGE])
+    got = bloom.probe_plain(dev(queries), words(bits), k).numpy()
+    qlo, qhi = ref_ops.split_u64(queries)
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_ref.bloom_probe_ref(qlo, qhi, jnp.asarray(bits),
+                                                k)))
+    assert got[:n].all()            # no false negatives on members
+
+
+def test_probe_false_positive_rate_reasonable():
+    rng = np.random.default_rng(9)
+    keys = rng.integers(0, 2**62, 4096, dtype=np.uint64)
+    bits = bloom.build_plain(dev(keys), 2048, 7)
+    absent = rng.integers(2**62, 2**63, 8192, dtype=np.uint64)
+    assert float(bloom.probe_plain(dev(absent), bits, 7).float().mean()) \
+        < 0.05
+
+
+@pytest.mark.parametrize("nq", [0, 1, 64, 512, 700])
+def test_probe_matches_bloomfilter_at_query_sizes(nq):
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 2**63, 900, dtype=np.uint64)
+    ref = ref_bloom.BloomFilter(keys, bits_per_key=10)
+    port = BloomFilter(dev(keys), 10)
+    np.testing.assert_array_equal(port.bits_numpy(), ref.bits)
+    assert (port.m_bits, port.k) == (ref.m_bits, ref.k)
+    q = rng.integers(0, 2**63, nq, dtype=np.uint64)
+    np.testing.assert_array_equal(port.may_contain(dev(q)).numpy(),
+                                  ref.may_contain(q))
+    if nq:
+        np.testing.assert_array_equal(port.may_contain(dev(q)).numpy(),
+                                      ref_ops.bloom_probe_filter(ref, q))
+
+
+@pytest.mark.parametrize("n,bpk", [(1, 10.0), (37, 3.0), (900, 10.0),
+                                   (5000, 7.5), (300, 0.0), (0, 10.0)])
+def test_build_matches_build_bits(n, bpk):
+    rng = np.random.default_rng(n)
+    keys = np.concatenate([EDGE, rng.integers(0, 2**64 - 1, n,
+                                              dtype=np.uint64)])[:n]
+    ref = ref_bloom.BloomFilter(keys, bpk)
+    port = BloomFilter(dev(keys), bpk)
+    assert (port.m_bits, port.k) == (ref.m_bits, ref.k)
+    np.testing.assert_array_equal(port.bits_numpy(), ref.bits)
+    if ref.k:
+        h1, h2 = ref_bloom.hash_pair(keys)
+        np.testing.assert_array_equal(
+            port.bits_numpy(), ref_bloom.build_bits(h1, h2, ref.k, ref.m_bits))
+
+
+def assert_merge_matches_reference(a: np.ndarray, b: np.ndarray, tile: int):
+    mk, mp = ref_ops.merge_runs_tiled(a, b, tile=tile)
+    keys, src = merge.merge_pair_plain(torch.from_numpy(ops.to_order(a)),
+                                       torch.from_numpy(ops.to_order(b)))
+    got = ops.from_order(keys.numpy(), a.dtype)
+    assert got.dtype == mk.dtype
+    np.testing.assert_array_equal(got, mk)
+    np.testing.assert_array_equal(src.numpy(), mp.astype(np.int64))
+
+
+@pytest.mark.parametrize("na,nb,tile", [(777, 1333, 256), (1, 5000, 128),
+                                        (256, 256, 256), (0, 100, 64),
+                                        (100, 0, 64), (4096, 4096, 512)])
+def test_merge_sweep_vs_merge_runs_tiled(na, nb, tile):
+    rng = np.random.default_rng(na + nb)
+    a = np.sort(rng.integers(0, 1 << 31, na, dtype=np.uint32))
+    b = np.sort(rng.integers(0, 1 << 31, nb, dtype=np.uint32))
+    assert_merge_matches_reference(a, b, tile)
+
+
+@pytest.mark.parametrize("dt,lo,hi", [(np.int64, -2**60, 2**60),
+                                      (np.int32, -2**31, 2**31 - 1),
+                                      (np.uint64, 0, 2**63)])
+def test_merge_signed_and_wide_dtypes(dt, lo, hi):
+    rng = np.random.default_rng(11)
+    a = np.sort(rng.integers(lo, hi, 700).astype(dt))
+    b = np.sort(rng.integers(lo, hi, 900).astype(dt))
+    assert_merge_matches_reference(a, b, 128)
+
+
+def test_merge_u64_max_and_duplicates_across_sides():
+    top = np.iinfo(np.uint64).max
+    assert_merge_matches_reference(np.array([0, 1, 5, 2**63, top], np.uint64),
+                                   np.array([2, 5, 9, 2**63 - 1, top],
+                                            np.uint64), 64)
+    rng = np.random.default_rng(5)
+    a = np.sort(rng.integers(0, 50, 300).astype(np.uint64))
+    b = np.sort(rng.integers(0, 50, 200).astype(np.uint64))
+    assert_merge_matches_reference(a, b, 64)
+
+
+def test_merge_row_limit_is_the_reference_limit():
+    with pytest.raises(ValueError):
+        merge._check_rows(merge.MAX_ROWS + 1, 0)
+    with pytest.raises(ValueError):
+        merge._check_rows(0, merge.MAX_ROWS + 1)
+    merge._check_rows(merge.MAX_ROWS, merge.MAX_ROWS)
+
+
+@pytest.mark.parametrize("n,width", [(0, 8), (1, 1), (257, 40), (64, 0)])
+def test_crc32c_rows_torch_matches_reference(n, width):
+    rng = np.random.default_rng(n + width)
+    mat = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, n)
+    got = crc32c_rows_torch(torch.from_numpy(mat), torch.from_numpy(lens))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                  ref_crc32c_rows(mat, lens))
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_it():
+    ops.reset_launch_counts()
+    keys = dev(np.arange(10, dtype=np.uint64))
+    bits = ops.bloom_build(keys, 4, 3)
+    assert ops.bloom_probe(keys, bits, 3).all()
+    ops.merge_pair(keys, keys)
+    assert ops.PLAIN_CALLS == {"bloom_probe": 1, "bloom_build": 1,
+                               "merge_pair": 1}
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    keys = dev(np.arange(10, dtype=np.uint64))
+    bits = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        bloom.probe_cuda(keys, bits, 3)
+    with pytest.raises(ValueError):
+        bloom.build_cuda(keys, 4, 3)
+    with pytest.raises(ValueError):
+        merge.merge_pair_cuda(keys, keys)
+    assert set(ops.launch_counts().values()) == {0}
