@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch store's main path on one NVIDIA GPU and check it.
+"""Drive the repro_torch store's and serving path's main paths on one
+NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -9,15 +10,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every kernel of src/repro_torch/csrc;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the shapes the main path gives it, exactly equal, timed
-                beside its memory bound (and a library call where one
-                computes the same function);
+                at the shapes the main paths give it (integer kernels
+                exactly equal, attention within 2e-5 in float32 and 2e-2 in
+                bfloat16), timed beside its bound (and a library call where
+                one computes the same function);
   4. equivalence — one seeded op sequence on a CUDA store and a CPU store:
                 bit-identical trees, IOStats and multi_get answers;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
                 write buffer, 10 bits per key), every answer checked;
-  6. kernel launches on phase 5, each of which must be > 0.
+  6. kernel launches on phase 5, each store kernel's must be > 0;
+  7. serve    — qwen3_4b at full width (random weights from the seed) over
+                AutumnKV: three waves of four 512-token requests (cold,
+                warm, mixed), hits, dedup and tokens checked, every kernel
+                launched on the path; then the smoke config served on the
+                card and on the CPU at float32, tokens equal.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -38,6 +45,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, NVIDIA data sheet
 # The data sheet gives no integer ALU peak; the fp32 CUDA-core peak (67 TFLOP/s)
 # is the highest non-tensor rate, so ops over it stay a lower bound.
 ALU_OPS_PER_S = 67e12
+# Dense tensor-core peak for bf16 inputs (989 TFLOP/s, H100 SXM, NVIDIA
+# data sheet, without sparsity); float32 attention is held to the fp32
+# CUDA-core peak above, the rate for float32 arithmetic outside TF32.
+BF16_FLOPS_PER_S = 989e12
 HASH_OPS = 30                  # hash_pair: two mix32 chains, xors, or
 PROBE_OPS = 6                  # one bit test: mul, add, mod, shift, and, test
 ROOT = Path(__file__).resolve().parent
@@ -49,7 +60,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/bloom_probe.py:36"),
     "merge_pair": ("src/repro_torch/csrc/merge.cu",
                    "src/repro/kernels/merge_path.py:77"),
+    "paged_attention": ("src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/paged_attention.py:65"),
+    "flash_attention": ("src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/flash_attention.py:66"),
 }
+STORE_KERNELS = ("bloom_probe", "bloom_build", "merge_pair")
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 
 
 def emit(obj) -> None:
@@ -63,12 +80,13 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, ops_per_s: float = ALU_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its operations over the
-    ALU rate."""
+    peak rate for their type (by default the ALU rate)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / ALU_OPS_PER_S * 1e3
+    by_ops = nops / ops_per_s * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -196,6 +214,93 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
         if row["max_abs_err"]:
             raise AssertionError(f"{name} differs from its plain version: "
                                  f"max abs error {row['max_abs_err']}")
+    return rows
+
+
+def sdpa_ms(torch, q, k, v, **kw) -> float:
+    """Time of one ``scaled_dot_product_attention`` call on (B, H, S, dh)
+    inputs; KV heads are expanded outside the timed call."""
+    import torch.nn.functional as F
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, **kw))
+
+
+def attention_rows(torch, attention, dev, seed: int) -> dict:
+    """Flash and paged attention against their plain versions at the serve
+    phase's shapes, in bfloat16 (the headline rows) and float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S, H, KH, dh = 4, 512, 32, 8, 128
+    page, P = 64, 16
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else ALU_OPS_PER_S
+        esize = torch.finfo(dt).bits // 8
+        tol = ATTN_TOL[name]
+        # flash: causal prefill of 4 x 512 tokens
+        q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dt)
+        k = torch.randn(B, S, KH, dh, generator=g, device=dev).to(dt)
+        v = torch.randn(B, S, KH, dh, generator=g, device=dev).to(dt)
+        got = attention.flash_cuda(q, k, v, causal=True)
+        want = attention.flash_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        pairs = B * H * S * (S + 1) // 2
+        row = dict(
+            shape=f"B{B} S{S} H{H} KH{KH} dh{dh} causal {name}",
+            max_abs_err=err, tolerance=tol,
+            ms=time_ms(torch, lambda: attention.flash_cuda(q, k, v)),
+            plain_ms=time_ms(torch, lambda: attention.flash_plain(q, k, v),
+                             5),
+            library_ms=sdpa_ms(torch, q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), is_causal=True),
+            **bound((2 * q.numel() + 2 * k.numel()) * esize,
+                    4 * dh * pairs, peak))
+        emit({"phase": "kernel", "kernel": "flash_attention", **row})
+        if dt == torch.bfloat16:
+            rows["flash_attention"] = row
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {name} differs from its "
+                                 f"plain version: {err} > {tol}")
+        # paged: one decode token per row over 16 pages of 64, lengths
+        # 513..528, pages scattered through the pool
+        q1 = torch.randn(B, H, dh, generator=g, device=dev).to(dt)
+        kp = torch.randn(B * P, page, KH, dh, generator=g, device=dev).to(dt)
+        vp = torch.randn(B * P, page, KH, dh, generator=g, device=dev).to(dt)
+        bt = torch.randperm(B * P, generator=g, device=dev).to(
+            torch.int32).view(B, P)
+        lens = torch.randint(513, 529, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        got = attention.paged_cuda(q1, kp, vp, bt, lens)
+        want = attention.paged_plain(q1, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        n_tok = int(lens.sum())
+        # SDPA on the gathered K/V, lengths as a boolean mask
+        kg = kp[bt.long()].reshape(B, P * page, KH, dh).transpose(1, 2)
+        vg = vp[bt.long()].reshape(B, P * page, KH, dh).transpose(1, 2)
+        mask = (torch.arange(P * page, device=dev)[None]
+                < lens[:, None])[:, None, None]
+        row = dict(
+            shape=f"B{B} H{H} KH{KH} dh{dh} page{page} P{P} "
+                  f"lengths {lens.tolist()} {name}",
+            max_abs_err=err, tolerance=tol,
+            ms=time_ms(torch, lambda: attention.paged_cuda(q1, kp, vp, bt,
+                                                           lens), 50),
+            plain_ms=time_ms(torch, lambda: attention.paged_plain(
+                q1, kp, vp, bt, lens), 10),
+            library_ms=sdpa_ms(torch, q1[:, :, None], kg, vg,
+                               attn_mask=mask),
+            **bound((2 * q1.numel() + 2 * n_tok * KH * dh) * esize
+                    + bt.numel() * 4 + B * 4, 4 * H * dh * n_tok, peak))
+        emit({"phase": "kernel", "kernel": "paged_attention", **row})
+        if dt == torch.bfloat16:
+            rows["paged_attention"] = row
+        if not err <= tol:
+            raise AssertionError(f"paged_attention {name} differs from its "
+                                 f"plain version: {err} > {tol}")
     return rows
 
 
@@ -380,6 +485,110 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 7
+def serve_phase(torch, ops, dev, seed: int) -> dict:
+    """qwen3_4b at full width over AutumnKV: the three waves of
+    examples/serve_autumnkv.py at 4 x 512-token prompts (8 pages each) and
+    16 decoded tokens, every check of the reference's semantics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("qwen3_4b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    eng = ServeEngine(cfg, params, batch=4, s_max=1024, device=dev)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, 512, dtype=np.int32)
+    other = rng.integers(0, cfg.vocab, 512, dtype=np.int32)
+    gen = 16
+    waves = [("cold", [shared] * 4), ("warm", [shared] * 4),
+             ("mixed", [other] * 2 + [shared] * 2)]
+    ops.reset_launch_counts()
+    outs, per_wave = [], []
+    for name, prompts in waves:
+        t = time.perf_counter()
+        out = eng.serve_batch([Request(p, gen) for p in prompts])
+        wall = time.perf_counter() - t
+        tm = eng.last_timings
+        st = eng.kv.stats()
+        per_wave.append(dict(
+            wave=name, wall_ms=wall * 1e3, lookup_ms=tm["lookup_s"] * 1e3,
+            prefill_ms=tm["prefill_s"] * 1e3, insert_ms=tm["insert_s"] * 1e3,
+            decode_step_ms_p50=float(np.percentile(tm["decode_step_s"], 50)
+                                     * 1e3),
+            decoded_tokens_per_s=len(prompts) * gen
+            / sum(tm["decode_step_s"]),
+            hits=st["hits"], pages_written=st["pages_written"],
+            pages_deduped=st["pages_deduped"]))
+        emit({"phase": "serve_wave", **per_wave[-1]})
+        outs.append(np.stack(out))
+    launches = ops.launch_counts()
+    plain = dict(ops.PLAIN_CALLS)
+    st = eng.kv.stats()
+    checks = {
+        "hits_0_4_6": [w["hits"] for w in per_wave] == [0, 4, 6],
+        "warm_equals_cold": np.array_equal(outs[1], outs[0]),
+        "mixed_hits_equal_cold": np.array_equal(outs[2][2:], outs[0][2:]),
+        "mixed_misses_agree": np.array_equal(outs[2][0], outs[2][1]),
+        "pages_written_16": st["pages_written"] == 16,
+        "pages_deduped_32": st["pages_deduped"] == 32,
+        "tokens_in_vocab": all(((o >= 0) & (o < cfg.vocab)).all()
+                               for o in outs),
+        "no_plain_calls": not any(plain.values()),
+        "every_kernel_launched": all(launches[k] > 0 for k in KERNELS),
+    }
+    # the device's idle share over one more warm wave, under the profiler
+    prof = profile_window(torch, lambda: eng.serve_batch(
+        [Request(shared, gen)] * 4))
+    out = dict(phase="serve", model=cfg.name, params=count_params(cfg),
+               batch=4, s_max=1024, prompt_tokens=512, gen_len=gen,
+               setup_s=setup_s, waves=per_wave, warm_wave_profile=prof,
+               levels=st["levels"], store_io={k: v for k, v in
+                                              st["io"].items() if v},
+               launches=launches, plain_calls=plain,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               checks=checks)
+    emit(out)
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serve phase failed: {bad}")
+    return out
+
+
+def serve_equivalence(torch, dev, seed: int) -> dict:
+    """The qwen3_4b smoke config served on the card (kernels) and on the
+    CPU (plain versions) at float32 from the same weights: equal tokens."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke("qwen3_4b"), compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    a, b = (rng.integers(0, cfg.vocab, 128, dtype=np.int32)
+            for _ in range(2))
+    tokens = []
+    for device in (dev, "cpu"):
+        eng = ServeEngine(cfg, params, batch=2, s_max=160, device=device)
+        tokens.append([np.stack(eng.serve_batch([Request(p, 40)] * 2))
+                       for p in (a, b, a)])
+    same = all(np.array_equal(x, y) for x, y in zip(*tokens))
+    out = dict(phase="serve_equivalence", model=cfg.name,
+               compute_dtype="float32", same_tokens=same)
+    emit(out)
+    if not same:
+        raise AssertionError("CUDA serving differs from CPU serving")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entries", type=int, default=10_000_000,
@@ -397,7 +606,7 @@ def main() -> int:
     try:
         import repro_torch as rt
         from repro_torch import _build
-        from repro_torch.kernels import bloom, merge, ops
+        from repro_torch.kernels import attention, bloom, merge, ops
     except ImportError as e:
         print(f"chip_smoke: repro_torch not found beside this script ({e})",
               file=sys.stderr)
@@ -417,11 +626,21 @@ def main() -> int:
                     for n, log in _build.build_logs.items()}})
     rng = np.random.default_rng(args.seed)
     rows = kernel_phase(torch, ops, bloom, merge, rng, dev)
+    rows.update(attention_rows(torch, attention, dev, args.seed))
     torch.cuda.empty_cache()
     equivalence_phase(torch, rt, rng, args.equiv_entries)
     torch.cuda.empty_cache()
     dbbench_phase(torch, rt, ops, rng, args.entries)
     launches = ops.launch_counts()
+    idle = [k for k in STORE_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on phase 5: {idle}")
+    torch.cuda.empty_cache()
+    serve = serve_phase(torch, ops, dev, args.seed)
+    serve_equivalence(torch, dev, args.seed)
+    # launches: the store kernels on phase 5, attention on the serve phase
+    launches.update({k: serve["launches"][k] for k in KERNELS
+                     if k not in STORE_KERNELS})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     max_abs_err=rows[name]["max_abs_err"],
@@ -431,9 +650,6 @@ def main() -> int:
                     library_ms=rows[name]["library_ms"])
                for name, (src, rep) in KERNELS.items()]
     emit({"kernels": kernels})
-    idle = [k["name"] for k in kernels if k["launches"] == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on phase 5: {idle}")
     emit({"phase": "done", "s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

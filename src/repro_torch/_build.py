@@ -19,7 +19,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("bloom", "merge")
+SOURCES = ("bloom", "merge", "attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +36,13 @@ SIGNATURES = {
         "merge_pair_launch": ([c_void_p, c_int64, c_void_p, c_int64,
                                c_void_p, c_void_p, c_void_p], c_int),
         "merge_error_string": ([c_int], c_char_p),
+    },
+    "attention": {
+        "flash_attention_launch": ([c_void_p] * 4 + [c_int] * 9 + [c_void_p],
+                                   c_int),
+        "paged_attention_launch": ([c_void_p] * 6 + [c_int] * 7 + [c_void_p],
+                                   c_int),
+        "attention_error_string": ([c_int], c_char_p),
     },
 }
 

@@ -147,3 +147,14 @@ class StatsHub:
     def merged(self) -> IOStats:
         """Fieldwise sum of all shards (a fresh IOStats; shards unmutated)."""
         return IOStats.merge(list(self._shards))
+
+
+def splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 (the reference's ``types.splitmix64``)."""
+    x = x.astype(np.uint64, copy=True)
+    x += np.uint64(0x9E3779B97F4A7C15)
+    z = x
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return z

@@ -1,7 +1,8 @@
 """Public kernel entry points: dispatch by device, launch counts, key map.
 
 Counterpart of ``repro.kernels.ops`` for the store's three lanes (bloom
-probe, bloom build, pair merge).  A CUDA tensor goes to the hand-written
+probe, bloom build, pair merge) and the model's two attention calls (flash
+attention for prefill, paged attention for decode).  A CUDA tensor goes to the hand-written
 kernel, which launches or raises; a CPU tensor goes to the kernel's plain
 version.  There is no fallback from one to the other.
 
@@ -18,22 +19,25 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from . import attention as _attention
 from . import bloom as _bloom
 from . import merge as _merge
 
 SIGN = np.uint64(1 << 63)
 
 # plain-version calls by entry point: the CPU twin of the launch counts
-PLAIN_CALLS = {"bloom_probe": 0, "bloom_build": 0, "merge_pair": 0}
+PLAIN_CALLS = {"bloom_probe": 0, "bloom_build": 0, "merge_pair": 0,
+               "flash_attention": 0, "paged_attention": 0}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {**_bloom.LAUNCHES, **_merge.LAUNCHES}
+    return {**_bloom.LAUNCHES, **_merge.LAUNCHES, **_attention.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_bloom.LAUNCHES, _merge.LAUNCHES, PLAIN_CALLS):
+    for counts in (_bloom.LAUNCHES, _merge.LAUNCHES, _attention.LAUNCHES,
+                   PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
 
@@ -101,3 +105,23 @@ def merge_pair(a: torch.Tensor, b: torch.Tensor
     if _route(a, "merge_pair"):
         return _merge.merge_pair_cuda(a, b)
     return _merge.merge_pair_plain(a, b)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention, q (B, Sq, H, dh) over k/v (B, Sk, KH, dh)."""
+    if _route(q, "flash_attention"):
+        return _attention.flash_cuda(q, k, v, causal=causal, window=window)
+    return _attention.flash_plain(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention, q (B, H, dh), over a block-table page
+    pool."""
+    if _route(q, "paged_attention"):
+        return _attention.paged_cuda(q, k_pages, v_pages, block_tables,
+                                     lengths)
+    return _attention.paged_plain(q, k_pages, v_pages, block_tables,
+                                  lengths)

@@ -19,7 +19,7 @@ import torch
 
 import repro_torch as rt
 from repro_torch.core.engine import _UNSUPPORTED
-from repro_torch.kernels import bloom, merge, ops
+from repro_torch.kernels import attention, bloom, merge, ops
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
 # property tests: one intra-op thread per worker keeps them on time.
@@ -177,4 +177,40 @@ def test_cuda_store_equals_cpu_store(cuda):
         for ra, rb in zip(lvl_a, lvl_b):
             for name in ra:
                 np.testing.assert_array_equal(ra[name], rb[name])
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("bloom_probe", "bloom_build",
+                                       "merge_pair"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_equal_plain_versions_on_the_card(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    for B, Sq, Sk, H, KH, dh, causal, window in [
+            (2, 100, 100, 4, 2, 8, True, 0), (2, 256, 256, 4, 2, 32, True, 64),
+            (1, 70, 130, 16, 1, 64, False, 50), (1, 200, 100, 4, 4, 128,
+                                                 True, 30)]:
+        q, k, v = randn(B, Sq, H, dh), randn(B, Sk, KH, dh), \
+            randn(B, Sk, KH, dh)
+        got = attention.flash_cuda(q, k, v, causal=causal, window=window)
+        want = attention.flash_plain(q, k, v, causal=causal, window=window)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    for B, H, KH, dh, page, P, lens in [(2, 4, 4, 16, 8, 3, [1, 24]),
+                                        (3, 8, 2, 32, 16, 4, [5, 64, 0]),
+                                        (1, 16, 1, 64, 32, 2, [33])]:
+        nphys = B * P + 2
+        q, kp, vp = randn(B, H, dh), randn(nphys, page, KH, dh), \
+            randn(nphys, page, KH, dh)
+        bt = torch.randint(0, nphys, (B, P), generator=g, device=cuda,
+                           dtype=torch.int32)
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = attention.paged_cuda(q, kp, vp, bt, ln)
+        want = attention.paged_plain(q, kp, vp, bt, ln)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    torch.cuda.synchronize()

@@ -13,11 +13,17 @@ import pytest
 import torch
 
 from repro.core import bloom as ref_bloom
+from repro.core.faults import crc32c as ref_crc32c
 from repro.core.faults import crc32c_rows as ref_crc32c_rows
+from repro.core.memtable import WriteAheadLog as RefWAL
+from repro.core.run import build_run as ref_build_run
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.faults import crc32c_rows_torch
+from repro_torch.core.faults import CHUNK, crc32c_rows, crc32c_rows_torch
+from repro_torch.core.memtable import WriteAheadLog
+from repro_torch.core.run import build_run
+from repro_torch.core.types import IOStats
 from repro_torch.kernels import bloom, merge, ops
 
 # the package exports a function of the same name as this module
@@ -195,6 +201,76 @@ def test_crc32c_rows_torch_matches_reference(n, width):
                                   ref_crc32c_rows(mat, lens))
 
 
+def edge_lengths(rng, n: int, width: int) -> np.ndarray:
+    """Row lengths around every chunk boundary, then random ones."""
+    edges = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK - 1, 2 * CHUNK,
+             2 * CHUNK + 1, width - 1, width]
+    lens = rng.integers(0, width + 1, n)
+    lens[:len(edges)] = [min(e, width) for e in edges][:n]
+    return lens
+
+
+@pytest.mark.parametrize("n,width", [(12, CHUNK + 1), (12, 2 * CHUNK + 1),
+                                     (40, 3000), (3, 5 * CHUNK)])
+def test_long_row_crcs_match_reference(n, width):
+    """Matrices wider than one chunk take the chunk-and-combine path, on
+    the host (numpy) and on a device (torch): bit for bit the reference's
+    byte loop, for lengths just below, at and above each chunk."""
+    rng = np.random.default_rng(n * width)
+    mat = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    lens = edge_lengths(rng, n, width)
+    want = ref_crc32c_rows(mat, lens)
+    np.testing.assert_array_equal(crc32c_rows(mat, lens), want)
+    got = crc32c_rows_torch(torch.from_numpy(mat), torch.from_numpy(lens))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+def test_one_mib_rows_match_the_scalar_oracle():
+    """1 MiB rows against the reference's scalar ``crc32c``, the oracle its
+    ``crc32c_rows`` is defined to equal (that byte loop takes ~15 s here)."""
+    rng = np.random.default_rng(1)
+    mat = rng.integers(0, 256, (3, 1 << 20), dtype=np.uint8)
+    lens = np.array([1 << 20, (1 << 20) - 3, 5 * CHUNK + 7])
+    want = [ref_crc32c(mat[i, :lens[i]].tobytes()) for i in range(3)]
+    assert crc32c_rows(mat, lens).tolist() == want
+    got = crc32c_rows_torch(torch.from_numpy(mat), torch.from_numpy(lens))
+    assert got.tolist() == want
+
+
+def test_wal_frames_of_long_values_match_reference():
+    """The WAL's scalar append checksums long messages by chunks; frames
+    stay byte-identical to the reference's."""
+    ref_wal, wal = RefWAL(), WriteAheadLog()
+    rng = np.random.default_rng(2)
+    for n in (0, 5, CHUNK - 25, CHUNK - 20, 3 * CHUNK, 50_000):
+        value = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        ref_wal.append(0, n, n + 1, value, IOStats())
+        wal.append(0, n, n + 1, value, IOStats())
+    assert bytes(wal._buf) == bytes(ref_wal._buf)
+
+
+def test_block_crcs_of_long_values_and_tombstones_match_reference():
+    """Entry checksums of a run whose values exceed one chunk (the AutumnKV
+    page case), with tombstones, feed identical block checksums."""
+    rng = np.random.default_rng(3)
+    n, vmax = 9, 3 * CHUNK + 5
+    keys = rng.choice(2**62, n, replace=False).astype(np.uint64)
+    keys[0] = 2**64 - 1
+    seqs = np.arange(1, n + 1, dtype=np.uint64)
+    vlens = rng.integers(0, vmax + 1, n).astype(np.int32)
+    vlens[[1, 4]] = -1                        # tombstones
+    vlens[2] = vmax
+    vals = rng.integers(0, 256, (n, vmax), dtype=np.uint8)
+    vals[np.arange(vmax)[None] >= np.maximum(vlens, 0)[:, None]] = 0
+    ref_run = ref_build_run(keys, seqs, vlens, vals, block_size=4096)
+    run = build_run(ops.keys_to_device(keys, "cpu"),
+                    torch.from_numpy(seqs.view(np.int64)),
+                    torch.from_numpy(vlens), torch.from_numpy(vals),
+                    block_size=4096)
+    np.testing.assert_array_equal(run.block_crcs.numpy().astype(np.uint32),
+                                  ref_run.block_crcs)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_it():
     ops.reset_launch_counts()
     keys = dev(np.arange(10, dtype=np.uint64))
@@ -202,7 +278,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     assert ops.bloom_probe(keys, bits, 3).all()
     ops.merge_pair(keys, keys)
     assert ops.PLAIN_CALLS == {"bloom_probe": 1, "bloom_build": 1,
-                               "merge_pair": 1}
+                               "merge_pair": 1, "flash_attention": 0,
+                               "paged_attention": 0}
     assert set(ops.launch_counts().values()) == {0}
 
 
