@@ -8,12 +8,21 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
-  2. build    — nvcc builds every kernel of src/repro_torch/csrc;
+  2. build    — nvcc builds every kernel of src/repro_torch/csrc; the
+                compiler's register and spill lines per kernel, and the
+                tensor-core (HMMA/HGMMA) instructions that cuobjdump finds
+                in each bf16 flash kernel (none fails the phase);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes the main paths give it (integer kernels
                 exactly equal, attention within 2e-5 in float32 and 2e-2 in
                 bfloat16), timed beside its bound (and a library call where
-                one computes the same function);
+                one computes the same function; attention, its plain
+                version and SDPA as CUDA-graph replays, the device's time,
+                with the eager per-call time beside it); paged attention
+                also over a rotation of page pools larger than L2
+                (``ms_cold_l2``); bf16 flash and paged also at a 4,096-token
+                context; both attention kernels give the same bits twice,
+                and a paged row alone the bits it gets inside a batch;
   4. equivalence — one seeded op sequence on a CUDA store and a CPU store:
                 bit-identical trees, IOStats and multi_get answers;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
@@ -32,8 +41,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +76,15 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
                         "src/repro/kernels/flash_attention.py:66"),
 }
+DESIGN = {    # name -> what the kernel's design is, for the kernels line
+    "bloom_probe": "one thread per key, L2 gathers",
+    "bloom_build": "one thread per key, global atomicOr",
+    "merge_pair": "rank by binary search, scatter",
+    "paged_attention": "split pages over (splits, KH, B) blocks, cp.async "
+                       "2-stage tiles, fp32 CUDA cores + ordered combine",
+    "flash_attention": "bf16: mma.sync m16n8k16, ldmatrix, cp.async 2-stage "
+                       "swizzled tiles; f32: fp32 FMAs on the CUDA cores",
+}
 STORE_KERNELS = ("bloom_probe", "bloom_build", "merge_pair")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 
@@ -91,17 +111,81 @@ def bound(nbytes: float, nops: float, ops_per_s: float = ALU_OPS_PER_S
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
+def kernel_label(mangled: str) -> str:
+    """``flash_attention_bf16_kernel<128>`` from a mangled kernel name: the
+    length-prefixed identifier that ends in ``_kernel``, and its template
+    argument."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            name = mangled[run.end():run.end() + n]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                         name):
+                arg = re.match(r"I(?:Li(\d+)E|(f)|13__nv_(bfloat16))E",
+                               mangled[run.end() + n:])
+                if arg is None:
+                    return name
+                a = next(x for x in arg.groups() if x)
+                return f"{name}<{'float' if a == 'f' else a}>"
+    return mangled
+
+
+def ptxas_lines(log: str) -> dict:
+    """The compiler's register and spill lines, by kernel."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            name = kernel_label(m.group(1))
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def tensor_core_instructions(_build) -> dict:
+    """HMMA/HGMMA instructions in each function of the attention library,
+    read from its SASS (``cuobjdump`` ships beside ``nvcc``)."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.BUILD / "libattention.so")],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            counts.setdefault(name, 0)
+        elif name and re.search(r"\bHG?MMA\b", ln):
+            counts[name] += 1
+    return counts
+
+
+def time_ms(torch, fn, reps: int = 20, graph: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+    after one warm-up call.  With ``graph`` the ``reps`` calls are captured
+    in one CUDA graph and timed as one replay: the device's time alone,
+    where eager calls of a kernel shorter than Python's dispatch would time
+    the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -218,21 +302,31 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
 
 
 def sdpa_ms(torch, q, k, v, **kw) -> float:
-    """Time of one ``scaled_dot_product_attention`` call on (B, H, S, dh)
-    inputs; KV heads are expanded outside the timed call."""
+    """Device time of one ``scaled_dot_product_attention`` call on (B, H,
+    S, dh) inputs (CUDA-graph replay); KV heads are expanded outside the
+    timed call."""
     import torch.nn.functional as F
     G = q.shape[1] // k.shape[1]
     k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
     return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, **kw))
+        q, k, v, **kw), graph=True)
+
+
+def same_bits(torch, what: str, a, b) -> None:
+    """Raise unless two outputs hold the same bits."""
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: outputs differ, max abs "
+                             f"{float((a.float() - b.float()).abs().max())}")
 
 
 def attention_rows(torch, attention, dev, seed: int) -> dict:
     """Flash and paged attention against their plain versions at the serve
-    phase's shapes, in bfloat16 (the headline rows) and float32."""
+    phase's shapes, in bfloat16 (the headline rows) and float32; the
+    determinism checks of both kernels."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B, S, H, KH, dh = 4, 512, 32, 8, 128
     page, P = 64, 16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
@@ -247,13 +341,17 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
         want = attention.flash_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        same_bits(torch, f"flash_attention {name} run twice", got,
+                  attention.flash_cuda(q, k, v, causal=True))
         pairs = B * H * S * (S + 1) // 2
         row = dict(
             shape=f"B{B} S{S} H{H} KH{KH} dh{dh} causal {name}",
-            max_abs_err=err, tolerance=tol,
-            ms=time_ms(torch, lambda: attention.flash_cuda(q, k, v)),
+            max_abs_err=err, tolerance=tol, deterministic=True,
+            ms=time_ms(torch, lambda: attention.flash_cuda(q, k, v),
+                       graph=True),
+            eager_ms=time_ms(torch, lambda: attention.flash_cuda(q, k, v)),
             plain_ms=time_ms(torch, lambda: attention.flash_plain(q, k, v),
-                             5),
+                             5, graph=True),
             library_ms=sdpa_ms(torch, q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), is_causal=True),
             **bound((2 * q.numel() + 2 * k.numel()) * esize,
@@ -264,6 +362,25 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
         if not err <= tol:
             raise AssertionError(f"flash_attention {name} differs from its "
                                  f"plain version: {err} > {tol}")
+        del q, k, v, got, want
+        if dt == torch.bfloat16:
+            # a 4,096-token causal prefill of one row
+            q, k, v = (torch.randn(1, 4096, n, dh, generator=g,
+                                   device=dev).to(dt) for n in (H, KH, KH))
+            err = float((attention.flash_cuda(q, k, v).float()
+                         - attention.flash_plain(q, k, v).float()).abs().max())
+            emit({"phase": "kernel_check", "kernel": "flash_attention",
+                  "shape": f"B1 S4096 H{H} KH{KH} dh{dh} causal {name}",
+                  "max_abs_err": err, "tolerance": tol,
+                  "ms": time_ms(torch, lambda: attention.flash_cuda(q, k, v),
+                                10, graph=True),
+                  "library_ms": sdpa_ms(torch, q.transpose(1, 2),
+                                        k.transpose(1, 2), v.transpose(1, 2),
+                                        is_causal=True)})
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {name} at S 4096 "
+                                     f"differs from its plain version: {err}")
+            del q, k, v
         # paged: one decode token per row over 16 pages of 64, lengths
         # 513..528, pages scattered through the pool
         q1 = torch.randn(B, H, dh, generator=g, device=dev).to(dt)
@@ -277,30 +394,82 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
         want = attention.paged_plain(q1, kp, vp, bt, lens)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        same_bits(torch, f"paged_attention {name} run twice", got,
+                  attention.paged_cuda(q1, kp, vp, bt, lens))
+        # row 0 alone against row 0 among rows of other lengths
+        mixed = torch.tensor([int(lens[0]), 1, 0, P * page],
+                             dtype=torch.int32, device=dev)
+        same_bits(torch, f"paged_attention {name} row 0 alone vs in a batch",
+                  attention.paged_cuda(q1[:1], kp, vp, bt[:1], mixed[:1])[0],
+                  attention.paged_cuda(q1, kp, vp, bt, mixed)[0])
         n_tok = int(lens.sum())
+        live_bytes = (2 * q1.numel() + 2 * n_tok * KH * dh) * esize \
+            + bt.numel() * 4 + B * 4
+        # HBM-cold time: distinct page pools in turn, their live pages
+        # together 3x the 50 MB L2, as the 36 layers' caches are in decode
+        n_pools = math.ceil(150e6 / live_bytes)
+        pools = [(torch.randn(kp.shape, generator=g, device=dev).to(dt),
+                  torch.randn(vp.shape, generator=g, device=dev).to(dt))
+                 for _ in range(n_pools)]
+        turn = itertools.cycle(pools)
+        ms_cold = time_ms(torch, lambda: attention.paged_cuda(
+            q1, *next(turn), bt, lens), 4 * n_pools, graph=True)
+        pool_mb = n_pools * 2 * kp.numel() * esize / 1e6
+        del pools
         # SDPA on the gathered K/V, lengths as a boolean mask
         kg = kp[bt.long()].reshape(B, P * page, KH, dh).transpose(1, 2)
         vg = vp[bt.long()].reshape(B, P * page, KH, dh).transpose(1, 2)
         mask = (torch.arange(P * page, device=dev)[None]
                 < lens[:, None])[:, None, None]
+        splits, pps = attention.paged_splits(KH, P, page, n_sm)
         row = dict(
             shape=f"B{B} H{H} KH{KH} dh{dh} page{page} P{P} "
                   f"lengths {lens.tolist()} {name}",
-            max_abs_err=err, tolerance=tol,
+            splits=splits, pages_per_split=pps, blocks=splits * KH * B,
+            live_blocks=KH * sum(math.ceil(math.ceil(n / page) / pps)
+                                 for n in lens.tolist()),
+            max_abs_err=err, tolerance=tol, deterministic=True,
+            batch_independent=True,
             ms=time_ms(torch, lambda: attention.paged_cuda(q1, kp, vp, bt,
-                                                           lens), 50),
+                                                           lens), 50,
+                       graph=True),
+            eager_ms=time_ms(torch, lambda: attention.paged_cuda(
+                q1, kp, vp, bt, lens), 50),
+            ms_cold_l2=ms_cold, cold_pools=n_pools, cold_pool_mb=pool_mb,
             plain_ms=time_ms(torch, lambda: attention.paged_plain(
-                q1, kp, vp, bt, lens), 10),
+                q1, kp, vp, bt, lens), 10, graph=True),
             library_ms=sdpa_ms(torch, q1[:, :, None], kg, vg,
                                attn_mask=mask),
-            **bound((2 * q1.numel() + 2 * n_tok * KH * dh) * esize
-                    + bt.numel() * 4 + B * 4, 4 * H * dh * n_tok, peak))
+            **bound(live_bytes, 4 * H * dh * n_tok, peak))
         emit({"phase": "kernel", "kernel": "paged_attention", **row})
         if dt == torch.bfloat16:
             rows["paged_attention"] = row
         if not err <= tol:
             raise AssertionError(f"paged_attention {name} differs from its "
                                  f"plain version: {err} > {tol}")
+        del kg, vg
+        # a 4,096-token context: splits of several tiles each
+        P_long = 64
+        kp = torch.randn(B * P_long, page, KH, dh, generator=g,
+                         device=dev).to(dt)
+        vp = torch.randn(kp.shape, generator=g, device=dev).to(dt)
+        bt = torch.randperm(B * P_long, generator=g, device=dev).to(
+            torch.int32).view(B, P_long)
+        lens = torch.tensor([4096, 4000, 2049, 65], dtype=torch.int32,
+                            device=dev)
+        got = attention.paged_cuda(q1, kp, vp, bt, lens)
+        err = float((got.float() - attention.paged_plain(
+            q1, kp, vp, bt, lens).float()).abs().max())
+        splits, pps = attention.paged_splits(KH, P_long, page, n_sm)
+        emit({"phase": "kernel_check", "kernel": "paged_attention",
+              "shape": f"B{B} H{H} KH{KH} dh{dh} page{page} P{P_long} "
+                       f"lengths {lens.tolist()} {name}",
+              "splits": splits, "pages_per_split": pps, "max_abs_err": err,
+              "tolerance": tol})
+        if not err <= tol:
+            raise AssertionError(f"paged_attention {name} at P {P_long} "
+                                 f"differs from its plain version: {err}")
+        del kp, vp
     return rows
 
 
@@ -620,10 +789,17 @@ def main() -> int:
           "cuda": torch.version.cuda})
     t = time.perf_counter()
     built = _build.build_all(force=True)
-    emit({"phase": "build", "built": built, "s": time.perf_counter() - t,
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in _build.build_logs.items()}})
+    build_s = time.perf_counter() - t
+    mma = tensor_core_instructions(_build)
+    flash_mma = {n: c for n, c in mma.items()
+                 if n.startswith("flash_attention_bf16_kernel")}
+    emit({"phase": "build", "built": built, "s": build_s,
+          "ptxas": {n: ptxas_lines(log)
+                    for n, log in _build.build_logs.items()},
+          "tensor_core_instructions": mma})
+    if not flash_mma or not all(flash_mma.values()):
+        raise AssertionError(f"bf16 flash attention without tensor-core "
+                             f"instructions in its SASS: {mma}")
     rng = np.random.default_rng(args.seed)
     rows = kernel_phase(torch, ops, bloom, merge, rng, dev)
     rows.update(attention_rows(torch, attention, dev, args.seed))
@@ -642,7 +818,7 @@ def main() -> int:
     launches.update({k: serve["launches"][k] for k in KERNELS
                      if k not in STORE_KERNELS})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
+                    design=DESIGN[name], launches=launches[name],
                     max_abs_err=rows[name]["max_abs_err"],
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],

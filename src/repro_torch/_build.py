@@ -40,7 +40,7 @@ SIGNATURES = {
     "attention": {
         "flash_attention_launch": ([c_void_p] * 4 + [c_int] * 9 + [c_void_p],
                                    c_int),
-        "paged_attention_launch": ([c_void_p] * 6 + [c_int] * 7 + [c_void_p],
+        "paged_attention_launch": ([c_void_p] * 8 + [c_int] * 9 + [c_void_p],
                                    c_int),
         "attention_error_string": ([c_int], c_char_p),
     },

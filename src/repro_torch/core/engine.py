@@ -78,7 +78,7 @@ def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda:0``, which must exist; the CPU only on request."""
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"LSMStore device {dev} requested but CUDA is not "
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")

@@ -13,9 +13,16 @@ back in q's dtype (float32 or bfloat16).
 
 The plain versions are the ``ref.py`` formulas and stand as the contract;
 ``flash_cuda`` and ``paged_cuda`` launch ``csrc/attention.cu`` and each adds
-one to :data:`LAUNCHES` where it launches.
+one to :data:`LAUNCHES` where it launches (a ``paged_cuda`` call is two
+kernel launches, the split pass and the combine, counted once).
+:func:`paged_splits` sizes the paged kernel's grid, and
+:func:`paged_split_plain` repeats that kernel's split-and-combine
+arithmetic for the tests; no path calls it.
 """
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 import torch
 
@@ -28,6 +35,7 @@ NEG = -1e30
 MAX_DH = 128
 MAX_PAGE = 128
 MAX_GROUP = 32
+SPLIT_MIN_KEYS = 64     # positions a paged split covers at the least
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -71,6 +79,64 @@ def paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
         < lengths.long()[:, None]
     p = torch.softmax(torch.where(mask[:, None, None], s, NEG), dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
+def paged_splits(KH: int, P: int, page: int, n_sm: int) -> Tuple[int, int]:
+    """``(splits, pps)``: the paged kernel's grid is (splits, KH, B), and
+    split ``s`` covers pages ``[s * pps, (s + 1) * pps)`` of each row.
+
+    A pure function of the shape and the card's SM count: the lengths never
+    enter, so a shape always gets the same split.  The batch size does not
+    enter either, so a row's split, and with it the order of its sums, is
+    the same whatever else is in the batch.  ``pps`` is the larger of the
+    pages that make 64 positions and ``P * KH // n_sm``: a single row then
+    fills the card's SMs with blocks whenever splits of 64 positions allow
+    it, and ``splits * pps >= P`` with no split left empty.
+    """
+    pps = min(P, max(-(-SPLIT_MIN_KEYS // page), P * KH // n_sm))
+    return -(-P // pps), pps
+
+
+def paged_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, block_tables: torch.Tensor,
+                      lengths: torch.Tensor, pps: int) -> torch.Tensor:
+    """The paged kernel's arithmetic in plain PyTorch, for the tests: per
+    split of ``pps`` pages, (m, l, acc) of a softmax over the split's live
+    positions (below ``ceil(length / page)`` pages, or all P at length 0),
+    then the live splits merged in increasing order."""
+    B, H, dh = q.shape
+    _, page, KH, _ = k_pages.shape
+    G = H // KH
+    P = block_tables.shape[1]
+    splits = -(-P // pps)
+    n = splits * pps * page
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, P * page, KH, dh).float()
+    v = v_pages[bt].reshape(B, P * page, KH, dh).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, KH, G, dh),
+                     k) * dh ** -0.5
+    ln = lengths.long()
+    n_pages = torch.where(ln > 0, torch.clamp((ln + page - 1) // page,
+                                              max=P), P)
+    pos = torch.arange(n, device=q.device)
+    s = torch.nn.functional.pad(s, (0, n - P * page))
+    s = torch.where((pos[None] < ln[:, None])[:, None, None], s, NEG)
+    s = torch.where((pos[None] < (n_pages * page)[:, None])[:, None, None],
+                    s, -torch.inf)                   # pages never read
+    s = s.reshape(B, KH, G, splits, pps * page)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n - P * page))
+    m = s.amax(-1).clamp_min(NEG)                    # the kernel starts at NEG
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgcn,bcnkd->bkgcd", p,
+                       v.reshape(B, splits, pps * page, KH, dh))
+    live = (torch.arange(splits, device=q.device)[None] * pps
+            < n_pages[:, None])[:, None, None]       # (B, 1, 1, splits)
+    M = torch.where(live, m, -torch.inf).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - M), 0.0)
+    out = (w[..., None] * acc).sum(-2) \
+        / (w * l).sum(-1).clamp_min(1e-30)[..., None]
     return out.reshape(B, H, dh).to(q.dtype)
 
 
@@ -118,10 +184,16 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                v_pages: torch.Tensor, block_tables: torch.Tensor,
                lengths: torch.Tensor) -> torch.Tensor:
-    """:func:`paged_plain` on the card (``paged_attention_launch``).  Reads
+    """:func:`paged_plain` on the card (``paged_attention_launch``: the
+    split pass over a :func:`paged_splits` grid, then the combine).  Reads
     block-table entries only for pages below ``ceil(length / page)``."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention: unsupported dtype {q.dtype}")
@@ -146,12 +218,18 @@ def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    splits, pps = paged_splits(KH, P, page, _sm_count(q.device.index or 0))
+    part_acc = torch.empty((B, H, splits, dh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
+                          device=q.device)
     lib = _build.load("attention")
     with torch.cuda.device(q.device):
         rc = lib.paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-            H, KH, dh, page, P, _DTYPE_CODE[q.dtype],
+            block_tables.data_ptr(), lengths.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), out.data_ptr(), B, H, KH, dh, page, P, pps,
+            splits, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check("attention", rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1

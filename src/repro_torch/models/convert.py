@@ -5,7 +5,9 @@ arrays (for example the reference's ``init_params`` output passed through
 ``numpy.asarray``) to torch tensors on a device, checking every leaf
 against this package's parameter table; ``params_to_numpy`` is its
 inverse.  ``cache_from_numpy`` and ``cache_to_numpy`` do the same for
-decode caches.  NumPy has no bfloat16 of its own: an ``ml_dtypes.bfloat16``
+decode caches.  Like the rest of the package, each puts its tensors on
+``cuda:0`` unless it is given ``device="cpu"``, and raises where CUDA is
+absent.  NumPy has no bfloat16 of its own: an ``ml_dtypes.bfloat16``
 array is read through a uint16 view, and a bfloat16 tensor comes back as
 its uint16 bit pattern, so the bytes on both sides are the same.
 """
@@ -16,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.engine import resolve_device
 from .config import ModelConfig, torch_dtype
 from .params import ParamSpec, param_table, tree_map
 
@@ -25,6 +28,7 @@ Pytree = Any
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     """One array to a tensor (an array whose dtype is named ``bfloat16``
     becomes a bfloat16 tensor with the same bits)."""
+    device = resolve_device(device)
     arr = np.array(arr, order="C")       # a copy; keeps 0-dim arrays 0-dim
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(
@@ -43,6 +47,7 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree: Pytree, cfg: ModelConfig, device=None) -> Pytree:
     """A reference parameter tree (numpy leaves) as torch tensors."""
     dtype = torch_dtype(cfg.param_dtype)
+    device = resolve_device(device)
 
     def one(spec: ParamSpec, arr):
         arr = np.asarray(arr)
@@ -60,6 +65,7 @@ def params_to_numpy(params: Pytree) -> Pytree:
 
 def cache_from_numpy(tree: Pytree, device=None) -> Pytree:
     """A reference decode cache (numpy leaves) as torch tensors."""
+    device = resolve_device(device)
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 

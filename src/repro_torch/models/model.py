@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.engine import resolve_device
 from . import blocks
 from .config import ModelConfig, find_stages, torch_dtype
 from .layers import rms_norm
@@ -70,6 +71,8 @@ def _is_cache_spec(x) -> bool:
 
 
 def init_cache(cfg: ModelConfig, B: int, s_max: int, device=None) -> Pytree:
+    """A zeroed decode cache on ``device`` (``cuda:0`` unless ``"cpu"``)."""
+    device = resolve_device(device)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                           device=device),
                     cache_table(cfg, B, s_max), is_leaf=_is_cache_spec)

@@ -1,5 +1,6 @@
 """repro_torch attention: the plain versions of the flash and paged kernels
-against the JAX reference, and the decode view the model uses.
+against the JAX reference, the paged kernel's split arithmetic and the
+shape-only sizing of its grid, and the decode view the model uses.
 
 The reference's Pallas kernels run in interpret mode, as its own tests run
 them (``tests/test_kernels.py``), at the same shapes and tolerances: float32
@@ -8,6 +9,9 @@ these plain versions on the card (the ``cuda``-marked test in
 ``tests/test_torch_boundary.py``, which imports no JAX, and
 ``chip_smoke.py`` at the serving shapes).
 """
+import functools
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro.kernels.paged_attention import paged_attention_pallas
 from repro.models.blocks import ring_positions as ref_ring_positions
 from repro.models.layers import gqa_attention
 from repro_torch.kernels import attention, ops
@@ -62,6 +67,71 @@ def test_paged_plain_matches_reference_kernel(B, H, KH, dh, page, P, dtype):
                                 torch.from_numpy(ln))
     assert got.dtype == TORCH[dtype] and got.shape == (B, H, dh)
     close(got, want, TOL[dtype])
+
+
+SPLIT_PAGE, SPLIT_P, SPLIT_KH, SPLIT_DH = 16, 4, 2, 32
+# lengths 0 (all pages, uniform), 1, one page, one page and one, all pages
+SPLIT_LENGTHS = [0, 1, SPLIT_PAGE, SPLIT_PAGE + 1, SPLIT_P * SPLIT_PAGE]
+
+
+@functools.lru_cache(maxsize=None)
+def split_case(G: int, dtype: str):
+    """Inputs and the two reference answers (the oracle and the Pallas
+    kernel in interpret mode) for one group size and type."""
+    rng = np.random.default_rng(G)
+    B, H = len(SPLIT_LENGTHS), G * SPLIT_KH
+    nphys = B * SPLIT_P + 3
+    q, tq = both(rng.standard_normal((B, H, SPLIT_DH)), dtype)
+    kp, tkp = both(rng.standard_normal((nphys, SPLIT_PAGE, SPLIT_KH,
+                                        SPLIT_DH)), dtype)
+    vp, tvp = both(rng.standard_normal((nphys, SPLIT_PAGE, SPLIT_KH,
+                                        SPLIT_DH)), dtype)
+    bt = rng.permutation(nphys)[:B * SPLIT_P].reshape(B, SPLIT_P)
+    bt = bt.astype(np.int32)
+    ln = np.array(SPLIT_LENGTHS, np.int32)
+    args = (q, kp, vp, jnp.asarray(bt), jnp.asarray(ln))
+    wants = (np.asarray(ref_ref.paged_attention_ref(*args), np.float32),
+             np.asarray(paged_attention_pallas(*args, interpret=True),
+                        np.float32))
+    return (tq, tkp, tvp, torch.from_numpy(bt), torch.from_numpy(ln)), wants
+
+
+@pytest.mark.parametrize("pps", range(1, SPLIT_P + 1))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_paged_split_plain_matches_reference(G, dtype, pps):
+    """The split kernel's arithmetic (per-split softmax partials, then the
+    ordered combine) against the reference oracle and Pallas kernel, for
+    every split width, at lengths 0, 1, page, page + 1 and P * page."""
+    inputs, wants = split_case(G, dtype)
+    got = attention.paged_split_plain(*inputs, pps)
+    assert got.dtype == TORCH[dtype] and got.shape == inputs[0].shape
+    for want in wants:
+        close(got, want, TOL[dtype])
+
+
+SERVE_SHAPE = dict(B=4, KH=8, P=16, page=64)     # qwen3_4b decode, s_max 1024
+
+
+@pytest.mark.parametrize("B,KH,P,page", [
+    tuple(SERVE_SHAPE.values()), (1, 8, 16, 64), (4, 8, 64, 64),
+    (1, 8, 512, 16), (2, 2, 3, 16), (1, 1, 1, 1), (3, 4, 100, 7),
+    (1, 32, 1, 128)])
+def test_paged_splits_depend_on_the_shape_only(B, KH, P, page):
+    """The paged grid comes from the shape and the SM count alone (no
+    lengths, no batch size), covers every page with no empty split, and
+    fills the card's 132 SMs at the serving shape."""
+    assert list(inspect.signature(attention.paged_splits).parameters) == \
+        ["KH", "P", "page", "n_sm"]
+    n_sm = 132
+    splits, pps = attention.paged_splits(KH, P, page, n_sm)
+    assert 1 <= pps <= P and splits * pps >= P > (splits - 1) * pps
+    assert pps * page >= min(P * page, attention.SPLIT_MIN_KEYS)
+    if dict(B=B, KH=KH, P=P, page=page) == SERVE_SHAPE:
+        assert splits * KH * B >= n_sm
+    if P * KH >= n_sm and page >= attention.SPLIT_MIN_KEYS:
+        assert splits * KH >= n_sm           # one row alone fills the card
+    assert attention.paged_splits(KH, P, page, n_sm) == (splits, pps)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

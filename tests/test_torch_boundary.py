@@ -192,18 +192,31 @@ def test_attention_kernels_equal_plain_versions_on_the_card(cuda, dtype):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=cuda).to(dt)
 
+    # dh 1..128 (20 and 1: rows not 16-byte aligned), Sq no multiple of the
+    # 64-row tile, Sq != Sk, rows that the window leaves without a key,
+    # causal and not
     for B, Sq, Sk, H, KH, dh, causal, window in [
             (2, 100, 100, 4, 2, 8, True, 0), (2, 256, 256, 4, 2, 32, True, 64),
             (1, 70, 130, 16, 1, 64, False, 50), (1, 200, 100, 4, 4, 128,
-                                                 True, 30)]:
+                                                 True, 30),
+            (1, 300, 300, 8, 2, 128, False, 0), (1, 1, 50, 4, 2, 16, True, 0),
+            (2, 130, 130, 6, 3, 20, True, 0), (1, 65, 65, 2, 1, 1, False, 0),
+            (1, 90, 40, 4, 2, 64, False, 20)]:
         q, k, v = randn(B, Sq, H, dh), randn(B, Sk, KH, dh), \
             randn(B, Sk, KH, dh)
         got = attention.flash_cuda(q, k, v, causal=causal, window=window)
         want = attention.flash_plain(q, k, v, causal=causal, window=window)
         assert float((got.float() - want.float()).abs().max()) <= tol
-    for B, H, KH, dh, page, P, lens in [(2, 4, 4, 16, 8, 3, [1, 24]),
-                                        (3, 8, 2, 32, 16, 4, [5, 64, 0]),
-                                        (1, 16, 1, 64, 32, 2, [33])]:
+    # lengths 0, 1, page and P * page; groups 1, 4 and 32; splits of one
+    # tile and of several (B, H, KH, dh, page, P, lengths)
+    for B, H, KH, dh, page, P, lens in [
+            (2, 4, 4, 16, 8, 3, [1, 24]), (3, 8, 2, 32, 16, 4, [5, 64, 0]),
+            (1, 16, 1, 64, 32, 2, [33]),
+            (5, 32, 8, 128, 64, 16, [0, 1, 64, 1024, 600]),
+            (4, 32, 1, 64, 16, 40, [0, 1, 16, 640]),
+            (3, 8, 8, 64, 32, 6, [0, 32, 192]),
+            (2, 16, 8, 128, 64, 64, [4096, 3000]),
+            (2, 4, 2, 6, 8, 5, [7, 40])]:
         nphys = B * P + 2
         q, kp, vp = randn(B, H, dh), randn(nphys, page, KH, dh), \
             randn(nphys, page, KH, dh)
@@ -214,3 +227,31 @@ def test_attention_kernels_equal_plain_versions_on_the_card(cuda, dtype):
         want = attention.paged_plain(q, kp, vp, bt, ln)
         assert float((got.float() - want.float()).abs().max()) <= tol
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_are_deterministic_on_the_card(cuda, dtype):
+    """Two calls give the same bits; a paged row alone gives the bits it
+    gets inside a batch of rows of other lengths."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    q, k, v = randn(2, 300, 8, 128), randn(2, 300, 2, 128), \
+        randn(2, 300, 2, 128)
+    assert torch.equal(attention.flash_cuda(q, k, v),
+                       attention.flash_cuda(q, k, v))
+    B, H, KH, dh, page, P = 4, 32, 8, 128, 64, 16
+    q, kp, vp = randn(B, H, dh), randn(B * P, page, KH, dh), \
+        randn(B * P, page, KH, dh)
+    bt = torch.randperm(B * P, generator=g, device=cuda).to(
+        torch.int32).view(B, P)
+    ln = torch.tensor([700, 1, 1024, 0], dtype=torch.int32, device=cuda)
+    batch = attention.paged_cuda(q, kp, vp, bt, ln)
+    assert torch.equal(batch, attention.paged_cuda(q, kp, vp, bt, ln))
+    alone = attention.paged_cuda(q[:1].contiguous(), kp, vp,
+                                 bt[:1].contiguous(), ln[:1].contiguous())
+    assert torch.equal(alone[0], batch[0])

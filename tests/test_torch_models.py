@@ -64,7 +64,7 @@ def test_param_tree_matches_the_reference_leaf_for_leaf(arch):
     ref_leaves = [(jax.tree_util.keystr(p), a.shape) for p, a in
                   jax.tree_util.tree_flatten_with_path(ref)[0]]
     assert list(param_shapes(cfg).items()) == ref_leaves
-    params = params_from_numpy(ref, cfg)
+    params = params_from_numpy(ref, cfg, device="cpu")
     back = params_to_numpy(params)
     for (_, a), (_, b) in zip(tree_leaves(back), tree_leaves(ref)):
         np.testing.assert_array_equal(a, b)
@@ -93,7 +93,8 @@ def test_prefill_and_decode_logits_match_jax(arch, dtype):
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype=dtype)
     ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
     model = Model(cfg, params_from_numpy(jax.tree.map(np.asarray,
-                                                      ref_params), cfg))
+                                                      ref_params), cfg,
+                                         device="cpu"))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
     s_max = 20

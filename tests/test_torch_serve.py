@@ -31,7 +31,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.kvcache import AutumnKVCache, chain_hashes
 from repro_torch.models import init_cache, init_params
 from repro_torch.models.convert import (cache_from_numpy, cache_to_numpy,
-                                        params_from_numpy)
+                                        params_from_numpy, params_to_numpy,
+                                        tensor_from_numpy)
 from repro_torch.models.params import tree_leaves
 from repro_torch.serve import Request, ServeEngine
 
@@ -52,7 +53,8 @@ def test_engine_tokens_equal_the_reference_engine(arch):
     ref_cfg = dataclasses.replace(ref_get_smoke(arch), compute_dtype="float32")
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg,
+                               device="cpu")
     ref = RefEngine(ref_cfg, ref_params, batch=4, s_max=96)
     port = ServeEngine(cfg, params, batch=4, s_max=96, device="cpu")
     try:
@@ -141,7 +143,7 @@ def test_codec_blobs_are_byte_identical(arch, compute_dtype):
     toks = jnp.asarray(rng.integers(0, cfg.vocab, (1, 64)))
     _, ref_cache = RM.prefill(params, {"tokens": toks}, ref_cfg, s_max=80)
     ref_cache = jax.tree.map(np.asarray, ref_cache)
-    cache = cache_from_numpy(ref_cache)
+    cache = cache_from_numpy(ref_cache, device="cpu")
     for (_, a), (_, b) in zip(tree_leaves(cache_to_numpy(cache)),
                               tree_leaves(ref_cache)):
         assert a.shape == b.shape and a.tobytes() == b.tobytes()
@@ -154,7 +156,7 @@ def test_codec_blobs_are_byte_identical(arch, compute_dtype):
         assert kv.codec.state_bytes(cache) == \
             ref_kv.codec.state_bytes(ref_cache)
         # a blob written back restores the slice it came from
-        blank = init_cache(cfg, 1, 80)
+        blank = init_cache(cfg, 1, 80, device="cpu")
         kv.codec.write_state(blank, kv.codec.state_bytes(cache))
         kv.codec.write_page(blank, kv.codec.page_bytes(cache, 0), 0)
         assert int(blank["pos"]) == 64
@@ -175,3 +177,29 @@ def test_engine_runs_on_the_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(cfg, params, 1, 64)
     assert ServeEngine(cfg, params, 1, 64, device="cpu").device.type == "cpu"
+
+
+CARRY_ACROSS = {
+    "tensor_from_numpy": lambda cfg, dev: tensor_from_numpy(
+        np.ones((2, 3), np.float32), **dev),
+    "params_from_numpy": lambda cfg, dev: params_from_numpy(
+        params_to_numpy(init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")), cfg, **dev)["embed"],
+    "cache_from_numpy": lambda cfg, dev: cache_from_numpy(
+        cache_to_numpy(init_cache(cfg, 1, 64, device="cpu")), **dev)["pos"],
+    "init_cache": lambda cfg, dev: init_cache(cfg, 1, 64, **dev)["pos"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARRY_ACROSS))
+def test_weights_and_caches_go_to_the_card_unless_asked_for_the_cpu(name):
+    """The functions that carry weights and caches across, like the engine,
+    mean ``cuda:0`` by default and raise without CUDA."""
+    cfg = get_smoke("qwen3_4b")
+    make = CARRY_ACROSS[name]
+    if torch.cuda.is_available():
+        assert make(cfg, {}).device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg, {})
+    assert make(cfg, {"device": "cpu"}).device.type == "cpu"
