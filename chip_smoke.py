@@ -4,7 +4,13 @@ NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--entries N] [--seed S]
+    python3 chip_smoke.py [--entries N] [--seed S] [--phases P,...]
+                          [--src DIR]
+
+``--phases`` runs a subset of kernels,attention,equivalence,db_bench,serve
+(all by default; a subset ends in a {"partial": true} line instead of the
+kernels and ok lines); ``--src`` imports repro_torch from another checkout's
+src/ (for example a parent commit's, to time two versions in one call).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
@@ -23,11 +29,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 (``ms_cold_l2``); bf16 flash and paged also at a 4,096-token
                 context; both attention kernels give the same bits twice,
                 and a paged row alone the bits it gets inside a batch;
+                the bloom build also at a flush's size and at an upper
+                level's, the merge also at an L0 run into a level and at
+                two flushes, each with the bytes its own design moves and
+                its device time by kernel;
   4. equivalence — one seeded op sequence on a CUDA store and a CPU store:
                 bit-identical trees, IOStats and multi_get answers;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
-                write buffer, 10 bits per key), every answer checked;
+                write buffer, 10 bits per key), every answer checked; the
+                load's last chunk under the profiler (device time by
+                kernel), and the size distribution of every bloom-build
+                and merge launch;
   6. kernel launches on phase 5, each store kernel's must be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
                 AutumnKV: three waves of four 512-token requests (cold,
@@ -78,8 +91,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 }
 DESIGN = {    # name -> what the kernel's design is, for the kernels line
     "bloom_probe": "one thread per key, L2 gathers",
-    "bloom_build": "one thread per key, global atomicOr",
-    "merge_pair": "rank by binary search, scatter",
+    "bloom_build": "shared-memory bitsets, no global atomic per key bit: "
+                   "bucket positions by 2^12-2^16-bit slice (shared "
+                   "histogram and counting sort, 16-bit offsets, one "
+                   "segment range reserved per block and slice), then set "
+                   "each slice in one block's shared memory and write its "
+                   "words once; fastmod for % m",
+    "merge_pair": "merge-path tiles of 2,048 outputs: tile ends searched "
+                  "once (by the tile's block, 32-way, below 2,048 tiles; "
+                  "by a split kernel above), tile staged in shared memory, "
+                  "8 items a thread merged serially, 16-byte coalesced "
+                  "stores",
     "paged_attention": "split pages over (splits, KH, B) blocks, cp.async "
                        "2-stage tiles, fp32 CUDA cores + ordered combine",
     "flash_attention": "bf16: mma.sync m16n8k16, ldmatrix, cp.async 2-stage "
@@ -211,29 +233,79 @@ def user_values(keys: np.ndarray, width: int = 100) -> list:
 
 
 # ------------------------------------------------------------ phase 3
+def build_design_bytes(bloom, n: int, m_words: int, k: int, dev) -> int:
+    """Bytes the bloom build's own design moves: the keys read twice, every
+    position written and read back as an in-slice offset, the words and
+    the slice counters written (the first design: the keys and one atomic
+    OR of 4 bytes a key bit)."""
+    if not hasattr(bloom, "build_plan"):
+        return n * 8 + n * k * 4
+    plan = bloom.build_plan(n, m_words, k, *bloom.card_limits(dev))
+    return (2 * n * 8 + 2 * n * k * plan.offset_bytes + m_words * 4
+            + plan.n_slices * 16)
+
+
+def kernel_split_ms(torch, fn, kernel: str, reps: int = 3) -> dict:
+    """Device ms per call of each of ``kernel``'s device functions, from
+    the profiler over ``reps`` calls of ``fn``."""
+    prof = profile_window(torch, lambda: [fn() for _ in range(reps)],
+                          by_kernel=True)
+    return {name: ms / reps
+            for name, ms in prof.get("device_ms_by_kernel", {}).items()
+            if name in STORE_KERNEL_FUNCTIONS[kernel]}
+
+
+def bloom_build_row(torch, bloom, keys, bpk: float, label: str) -> dict:
+    """bloom_build against build_plain on ``keys`` at ``bpk`` bits a key
+    (the store's geometry); the kernel timed as a CUDA-graph replay."""
+    n_keys = keys.numel()
+    m_words = -(-max(64, int(round(bpk * n_keys))) // 32)
+    k = max(1, int(round(bpk * math.log(2))))
+    got = bloom.build_cuda(keys, m_words, k)
+    want = bloom.build_plain(keys, m_words, k)
+    torch.cuda.synchronize()
+    reps = 10 if n_keys >= 1_000_000 else 50
+    return dict(
+        shape=f"{label}: {n_keys} keys, {m_words} words, k={k}",
+        max_abs_err=max_abs_err(torch, got, want),
+        ms=time_ms(torch, lambda: bloom.build_cuda(keys, m_words, k), reps,
+                   graph=True),
+        eager_ms=time_ms(torch, lambda: bloom.build_cuda(keys, m_words, k),
+                         reps),
+        plain_ms=time_ms(torch, lambda: bloom.build_plain(keys, m_words, k),
+                         3),
+        library_ms=None,
+        design_bytes=build_design_bytes(bloom, n_keys, m_words, k,
+                                        keys.device),
+        kernel_split_ms=kernel_split_ms(
+            torch, lambda: bloom.build_cuda(keys, m_words, k), "bloom_build"),
+        **bound(n_keys * 8 + m_words * 4,
+                n_keys * (HASH_OPS + k * PROBE_OPS)))
+
+
 def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
-    """Every kernel against its plain version at the main path's shapes;
-    returns the headline row per kernel."""
+    """The store's kernels against their plain versions at the main path's
+    shapes; returns the headline row per kernel."""
     rows = {}
-    # bloom build: the filter of the deepest run, 10M keys at 10 bits/key
+    # bloom build: the deepest run's filter (10M keys at 10 bits a key), a
+    # flush's (a 4 MiB buffer of 116-byte entries: 36,158 keys) and an
+    # upper level's (185,959 keys: the first filter of more words than one
+    # block's shared memory holds)
     n_keys, bpk = 10_000_000, 10
     keys = ops.keys_to_device(rng.integers(0, 2**64 - 1, n_keys,
                                            dtype=np.uint64), dev)
+    for n, label in ((n_keys, "deepest run"), (36_158, "flush"),
+                     (185_959, "upper level")):
+        row = bloom_build_row(torch, bloom, keys[:n], bpk, label)
+        emit({"phase": "kernel", "kernel": "bloom_build", **row})
+        rows.setdefault("bloom_build", row)
+        if row["max_abs_err"]:
+            raise AssertionError(f"bloom_build differs from its plain "
+                                 f"version at {row['shape']}")
     m_words = -(-n_keys * bpk // 32)
     k = round(bpk * np.log(2))
-    got = bloom.build_cuda(keys, m_words, k)
-    want = bloom.build_plain(keys, m_words, k)
-    err = max_abs_err(torch, got, want)
-    ms = time_ms(torch, lambda: bloom.build_cuda(keys, m_words, k), 10)
-    plain = time_ms(torch, lambda: bloom.build_plain(keys, m_words, k), 3)
-    rows["bloom_build"] = dict(
-        shape=f"{n_keys} keys, {m_words} words, k={k}", max_abs_err=err,
-        ms=ms, plain_ms=plain, library_ms=None,
-        **bound(n_keys * 8 + m_words * 4,
-                n_keys * (HASH_OPS + k * PROBE_OPS)))
-    emit({"phase": "kernel", "kernel": "bloom_build", **rows["bloom_build"]})
+    bits = bloom.build_cuda(keys, m_words, k)
     # bloom probe: one 65,536-key wave against that filter, half members
-    bits = got
     n_q = 65_536
     q = torch.cat([keys[torch.randperm(n_keys, device=dev)[:n_q // 2]],
                    ops.keys_to_device(rng.integers(0, 2**64 - 1, n_q // 2,
@@ -259,36 +331,55 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
                 n_q * HASH_OPS + int(needed.sum()) * PROBE_OPS))
     emit({"phase": "kernel", "kernel": "bloom_probe", **rows["bloom_probe"]})
     del keys, bits, q, pos, bit, needed
-    # merge: balanced with shared keys, skewed, and the u64 maximum
+    # merge: balanced with shared keys, skewed, the u64 maximum, an L0 run
+    # into a level, and two flush-sized runs
+    def draw(n):
+        return rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+
     top = np.array([2**64 - 1], dtype=np.uint64)
     cases = []
-    shared = rng.integers(0, 2**64 - 1, 1_000_000, dtype=np.uint64)
-    a = np.unique(np.concatenate([shared, rng.integers(
-        0, 2**64 - 1, 4_000_000, dtype=np.uint64), top]))
-    b = np.unique(np.concatenate([shared, rng.integers(
-        0, 2**64 - 1, 4_000_000, dtype=np.uint64), top]))
-    cases.append(("5M+5M shared", a, b))
-    cases.append(("40k+10M skewed", np.unique(rng.integers(
-        0, 2**64 - 1, 40_000, dtype=np.uint64)), np.unique(rng.integers(
-            0, 2**64 - 1, 10_000_000, dtype=np.uint64))))
+    shared = draw(1_000_000)
+    cases.append(("5M+5M shared",
+                  np.unique(np.concatenate([shared, draw(4_000_000), top])),
+                  np.unique(np.concatenate([shared, draw(4_000_000), top]))))
+    cases.append(("40k+10M skewed", np.unique(draw(40_000)),
+                  np.unique(draw(10_000_000))))
     cases.append(("u64 max", np.array([0, 5, 2**63, 2**64 - 1], np.uint64),
                   np.array([2**32 - 1, 5, 2**63 - 1, 2**64 - 1], np.uint64)))
+    cases.append(("144k+2M L0 into a level", np.unique(draw(144_000)),
+                  np.unique(draw(2_000_000))))
+    cases.append(("36k+36k flushes", np.unique(draw(36_000)),
+                  np.unique(draw(36_000))))
     for name, a, b in cases:
         ta, tb = ops.keys_to_device(np.sort(a), dev), \
             ops.keys_to_device(np.sort(b), dev)
         gk, gs = merge.merge_pair_cuda(ta, tb)
         wk, ws = merge.merge_pair_plain(ta, tb)
         err = max(max_abs_err(torch, gk, wk), max_abs_err(torch, gs, ws))
-        n = ta.numel() + tb.numel()
-        row = dict(shape=name, max_abs_err=err,
-                   ms=time_ms(torch, lambda: merge.merge_pair_cuda(ta, tb)),
+        na, nb = ta.numel(), tb.numel()
+        n = na + nb
+        tiles = -(-n // 2048)
+        row = dict(shape=name, na=na, nb=nb, max_abs_err=err,
+                   ms=time_ms(torch, lambda: merge.merge_pair_cuda(ta, tb),
+                              graph=True),
+                   eager_ms=time_ms(torch,
+                                    lambda: merge.merge_pair_cuda(ta, tb)),
                    plain_ms=time_ms(torch,
                                     lambda: merge.merge_pair_plain(ta, tb), 5),
+                   # each tile end's search: rounds of 32 key pairs (a
+                   # binary search of pairs from the split pass)
+                   design_bytes=n * 24 + tiles * 2 * 16 * (
+                       math.ceil(math.log2(min(na, nb) + 1)) + 1
+                       if tiles >= getattr(merge, "SPLIT_TILES", 0) else
+                       32 * (math.ceil(math.log(min(na, nb) + 1, 33)) + 1)),
                    **bound(n * 8 + n * 16, n * 4 + 5 * (
-                       ta.numel() * math.ceil(math.log2(tb.numel() + 1))
-                       + tb.numel() * math.ceil(math.log2(ta.numel() + 1)))),
+                       na * math.ceil(math.log2(nb + 1))
+                       + nb * math.ceil(math.log2(na + 1)))),
                    library_ms=time_ms(torch, lambda: torch.sort(
-                       torch.cat([ta, tb]), stable=True)))
+                       torch.cat([ta, tb]), stable=True), graph=True),
+                   kernel_split_ms=kernel_split_ms(
+                       torch, lambda: merge.merge_pair_cuda(ta, tb),
+                       "merge_pair"))
         emit({"phase": "kernel", "kernel": "merge_pair", **row})
         rows.setdefault("merge_pair", row)
         if err:
@@ -526,9 +617,23 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
 
 
 # ------------------------------------------------------------ phase 5
-def profile_window(torch, fn) -> dict:
+def short_kernel_name(name: str) -> str:
+    """``bloom_bucket_kernel`` from a profiler's demangled kernel name such
+    as ``void (anonymous namespace)::bloom_bucket_kernel<unsigned short>(
+    long const*, ...)``; copies and fills keep their own names."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    name = re.split(r"[<(]", name, maxsplit=1)[0]
+    return name.rsplit("::", 1)[-1] or name
+
+
+def profile_window(torch, fn, by_kernel: bool = False) -> dict:
     """Wall time of ``fn`` and the device time of the kernels and copies
-    it ran (torch.profiler), hence the device's idle share."""
+    it ran (torch.profiler), hence the device's idle share; with
+    ``by_kernel`` also every kernel's device time, by its short name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -551,9 +656,60 @@ def profile_window(torch, fn) -> dict:
     if not by_name:
         return dict(wall_ms=wall_us / 1e3, device_busy_ms="not measured")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                device_idle_share=1 - busy_us / wall_us,
-                top_device_ms={name[:80]: us / 1e3 for name, us in top})
+    out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               device_idle_share=1 - busy_us / wall_us,
+               top_device_ms={name[:80]: us / 1e3 for name, us in top})
+    if by_kernel:
+        short = {}
+        for name, us in by_name.items():
+            key = short_kernel_name(name)
+            short[key] = short.get(key, 0.0) + us / 1e3
+        out["device_ms_by_kernel"] = dict(
+            sorted(short.items(), key=lambda kv: -kv[1]))
+    return out
+
+
+# the device kernels of each store kernel's wrapper, this design's and the
+# first design's, by short name
+STORE_KERNEL_FUNCTIONS = {
+    "bloom_build": ("bloom_bucket_kernel", "bloom_set_kernel",
+                    "bloom_build_kernel"),
+    "merge_pair": ("merge_split_kernel", "merge_tile_kernel",
+                   "merge_pair_kernel"),
+    "bloom_probe": ("bloom_probe_kernel",),
+}
+
+
+def size_distribution(sizes) -> dict:
+    """Count, sum, quantiles and a decade histogram of launch sizes."""
+    if not sizes:
+        return dict(count=0)
+    arr = np.asarray(sizes, dtype=np.int64)
+    decades = {}
+    for v in arr.tolist():
+        lo = 10 ** max(0, len(str(v)) - 1)
+        label = f"[{lo:.0e}, {lo * 10:.0e})"
+        decades[label] = decades.get(label, 0) + 1
+    return dict(count=int(arr.size), sum=int(arr.sum()), min=int(arr.min()),
+                p50=float(np.percentile(arr, 50)),
+                p90=float(np.percentile(arr, 90)), max=int(arr.max()),
+                decades=dict(sorted(decades.items(),
+                                    key=lambda kv: float(kv[0][1:6]))))
+
+
+def launch_size_report(ops) -> dict:
+    """The distribution of the elements of every bloom_build and
+    merge_pair launch since the last reset (keys; na + nb and the smaller
+    side)."""
+    if not hasattr(ops, "launch_sizes"):
+        return {}
+    sizes = ops.launch_sizes()
+    pairs = sizes["merge_pair"]
+    return dict(bloom_build_keys=size_distribution(sizes["bloom_build"]),
+                merge_pair_elements=size_distribution(
+                    [a + b for a, b in pairs]),
+                merge_pair_smaller_side=size_distribution(
+                    [min(a, b) for a, b in pairs]))
 
 
 def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
@@ -582,17 +738,29 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
     store._apply = timed("compaction", store._apply)
     store.memtable.to_run = timed("flush_build", store.memtable.to_run)
     ops.reset_launch_counts()
+    # every chunk but the last timed; the last, which flushes and compacts
+    # like the others, under the profiler for the load's device split
+    chunk = min(500_000, -(-keys.size // 2))
+    starts = list(range(0, keys.size, chunk))
     t0 = time.perf_counter()
-    chunk = 500_000
-    for i in range(0, keys.size, chunk):
+    for i in starts[:-1]:
         kc = keys[i:i + chunk]
         store.put_batch(kc.tolist(), user_values(kc))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    load_stats = store.stats
+    load_spent = dict(spent)
+    kc = keys[starts[-1]:]
+    load_profile = profile_window(torch, lambda: store.put_batch(
+        kc.tolist(), user_values(kc)), by_kernel=True)
+    per_kernel = load_profile.get("device_ms_by_kernel", {})
+    load_profile["store_kernels_ms"] = {
+        name: sum(per_kernel.get(f, 0.0) for f in fns)
+        for name, fns in STORE_KERNEL_FUNCTIONS.items()}
     deleted = rng.choice(keys, keys.size // 100, replace=False)
     store.delete_batch(deleted.tolist())
     torch.cuda.synchronize()
-    load_stats = store.stats
+    launch_sizes = launch_size_report(ops)
     live = np.setdiff1d(keys, deleted)
     wave, n_waves = 65_536, 32
     before = store.stats
@@ -631,12 +799,16 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
     out = dict(
         phase="db_bench", entries=int(keys.size), deleted=int(deleted.size),
         value_bytes=100, key_bytes=cfg.key_bytes,
-        config=dataclasses.asdict(cfg), load_s=load_s,
-        load_entries_per_s=keys.size / load_s,
-        compaction_s=spent["compaction"], flush_build_s=spent["flush_build"],
-        host_write_path_s=load_s - spent["compaction"] - spent["flush_build"],
+        config=dataclasses.asdict(cfg), load_timed_entries=starts[-1],
+        load_s=load_s, load_entries_per_s=starts[-1] / load_s,
+        compaction_s=load_spent["compaction"],
+        flush_build_s=load_spent["flush_build"],
+        host_write_path_s=load_s - load_spent["compaction"]
+        - load_spent["flush_build"],
         compaction_mb_per_s=load_stats.bytes_compacted / 1e6
-        / spent["compaction"] if spent["compaction"] else None,
+        / load_spent["compaction"] if load_spent["compaction"] else None,
+        load_profile_last_chunk=dict(entries=int(kc.size), **load_profile),
+        launch_sizes=launch_sizes,
         bytes_compacted=load_stats.bytes_compacted,
         write_amp=load_stats.write_amplification(),
         read_keys=checked, read_s=sum(wave_s),
@@ -758,6 +930,9 @@ def serve_equivalence(torch, dev, seed: int) -> dict:
     return out
 
 
+PHASES = ("kernels", "attention", "equivalence", "db_bench", "serve")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entries", type=int, default=10_000_000,
@@ -765,19 +940,29 @@ def main() -> int:
     ap.add_argument("--equiv-entries", type=int, default=200_000,
                     help="phase-4 entry count")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the device and "
+                         f"build phases (all by default: {','.join(PHASES)})")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="directory that holds the repro_torch package "
+                         "(this checkout's src/ by default)")
     args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     try:
         import repro_torch as rt
         from repro_torch import _build
         from repro_torch.kernels import attention, bloom, merge, ops
     except ImportError as e:
-        print(f"chip_smoke: repro_torch not found beside this script ({e})",
+        print(f"chip_smoke: repro_torch not found in {args.src} ({e})",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
@@ -786,7 +971,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "src": str(Path(rt.__file__).parent)})
     t = time.perf_counter()
     built = _build.build_all(force=True)
     build_s = time.perf_counter() - t
@@ -801,22 +986,35 @@ def main() -> int:
         raise AssertionError(f"bf16 flash attention without tensor-core "
                              f"instructions in its SASS: {mma}")
     rng = np.random.default_rng(args.seed)
-    rows = kernel_phase(torch, ops, bloom, merge, rng, dev)
-    rows.update(attention_rows(torch, attention, dev, args.seed))
+    rows = {}
+    if "kernels" in phases:
+        rows.update(kernel_phase(torch, ops, bloom, merge, rng, dev))
+    if "attention" in phases:
+        rows.update(attention_rows(torch, attention, dev, args.seed))
     torch.cuda.empty_cache()
-    equivalence_phase(torch, rt, rng, args.equiv_entries)
-    torch.cuda.empty_cache()
-    dbbench_phase(torch, rt, ops, rng, args.entries)
-    launches = ops.launch_counts()
-    idle = [k for k in STORE_KERNELS if launches[k] == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on phase 5: {idle}")
-    torch.cuda.empty_cache()
-    serve = serve_phase(torch, ops, dev, args.seed)
-    serve_equivalence(torch, dev, args.seed)
-    # launches: the store kernels on phase 5, attention on the serve phase
-    launches.update({k: serve["launches"][k] for k in KERNELS
-                     if k not in STORE_KERNELS})
+    if "equivalence" in phases:
+        equivalence_phase(torch, rt, rng, args.equiv_entries)
+        torch.cuda.empty_cache()
+    launches = {}
+    if "db_bench" in phases:
+        dbbench_phase(torch, rt, ops, rng, args.entries)
+        launches = ops.launch_counts()
+        idle = [k for k in STORE_KERNELS if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on phase 5: {idle}")
+        torch.cuda.empty_cache()
+    if "serve" in phases:
+        serve = serve_phase(torch, ops, dev, args.seed)
+        serve_equivalence(torch, dev, args.seed)
+        # launches: the store kernels on phase 5, attention on the serve
+        # phase
+        launches.update({k: serve["launches"][k] for k in KERNELS
+                         if k not in STORE_KERNELS})
+    if list(phases) != list(PHASES):
+        emit({"phase": "done", "s": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        emit({"partial": True, "phases": phases})
+        return 0
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     design=DESIGN[name], launches=launches[name],
                     max_abs_err=rows[name]["max_abs_err"],

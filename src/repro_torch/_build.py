@@ -9,7 +9,7 @@ here runs at import time: the CPU-only test environment has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-from ctypes import c_char_p, c_int, c_int64, c_void_p
+from ctypes import POINTER, c_char_p, c_int, c_int64, c_void_p
 import os
 import shutil
 import subprocess
@@ -28,13 +28,17 @@ SIGNATURES = {
     "bloom": {
         "bloom_probe_launch": ([c_void_p, c_int64, c_void_p, c_int64, c_int,
                                 c_void_p, c_void_p], c_int),
+        "bloom_smem_optin": ([c_int, POINTER(c_int)], c_int),
         "bloom_build_launch": ([c_void_p, c_int64, c_void_p, c_int64, c_int,
-                                c_void_p], c_int),
+                                c_int64, c_int, c_int, c_int, c_int64,
+                                c_void_p, c_void_p, c_void_p], c_int),
         "bloom_error_string": ([c_int], c_char_p),
     },
     "merge": {
         "merge_pair_launch": ([c_void_p, c_int64, c_void_p, c_int64,
-                               c_void_p, c_void_p, c_void_p], c_int),
+                               c_void_p, c_void_p, c_void_p, c_void_p],
+                              c_int),
+        "merge_tile_size": ([], c_int),
         "merge_error_string": ([c_int], c_char_p),
     },
     "attention": {

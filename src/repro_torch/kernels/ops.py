@@ -35,11 +35,20 @@ def launch_counts() -> Dict[str, int]:
     return {**_bloom.LAUNCHES, **_merge.LAUNCHES, **_attention.LAUNCHES}
 
 
+def launch_sizes() -> Dict[str, list]:
+    """The elements of every store-kernel launch since the last reset:
+    keys of each ``bloom_build``, ``(na, nb)`` of each ``merge_pair``."""
+    return {**_bloom.LAUNCH_SIZES, **_merge.LAUNCH_SIZES}
+
+
 def reset_launch_counts() -> None:
     for counts in (_bloom.LAUNCHES, _merge.LAUNCHES, _attention.LAUNCHES,
                    PLAIN_CALLS):
         for name in counts:
             counts[name] = 0
+    for sizes in (_bloom.LAUNCH_SIZES, _merge.LAUNCH_SIZES):
+        for name in sizes:
+            sizes[name].clear()
 
 
 # ------------------------------------------------------------- key map

@@ -158,6 +158,76 @@ def test_kernels_equal_plain_versions_on_the_card(cuda):
     torch.cuda.synchronize()
 
 
+def bloom_card_sizes(device):
+    """Filter sizes in words at the card's edges: one word either side of
+    the largest filter one block's shared memory holds, at and beside
+    slice boundaries, and past 2^28 bits (17-bit slices, 32-bit
+    offsets)."""
+    switch = bloom.card_limits(device)[0] // 4
+    return [1, 11_300, switch, switch + 1, 2048 * 29, 2048 * 29 + 1,
+            2048 * 30 - 1, (1 << 23) + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 20])
+def test_bloom_build_ways_equal_plain_on_the_card(cuda, k):
+    rng = np.random.default_rng(k)
+    keys = ops.keys_to_device(rng.integers(0, 2**64 - 1, 1_000_000,
+                                           dtype=np.uint64), cuda)
+    same = ops.keys_to_device(np.full(1_000_000, 12345, np.uint64), cuda)
+    ops.reset_launch_counts()
+    for m_words in bloom_card_sizes(cuda):
+        for n in (0, 1, 1_000_000):
+            got = bloom.build_cuda(keys[:n], m_words, k)
+            assert torch.equal(got, bloom.build_plain(keys[:n], m_words, k)), \
+                (m_words, n, k)
+        # one key a million times: its slices overflow their segments
+        assert torch.equal(bloom.build_cuda(same, m_words, k),
+                           bloom.build_plain(same, m_words, k)), m_words
+    assert ops.launch_counts()["bloom_build"] == \
+        len(ops.launch_sizes()["bloom_build"]) == 3 * len(
+            bloom_card_sizes(cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_merge_pair_tiles_equal_plain_on_the_card(cuda):
+    rng = np.random.default_rng(2)
+    tile = merge.TILE
+    top = np.uint64(2**64 - 1)
+
+    def rand(n, hi=2**64 - 1):
+        return np.sort(rng.integers(0, hi, n, dtype=np.uint64))
+
+    # equal keys across a tile boundary; duplicates across sides at a tile
+    # edge; one element against a million and back; one side empty; the
+    # u64 maximum on both sides; duplicates within a side
+    edge = rand(tile)
+    shared_edge = np.sort(np.concatenate([edge, edge[tile // 2 - 8:
+                                                     tile // 2 + 8]]))
+    cases = [
+        (np.full(3000, 5, np.uint64), np.full(3000, 5, np.uint64)),
+        (shared_edge, np.sort(np.concatenate([edge[tile // 2 - 8:
+                                                   tile // 2 + 8],
+                                              rand(tile - 16)]))),
+        (rand(1), rand(1_000_000)), (rand(1_000_000), rand(1)),
+        (rand(0), rand(5000)), (rand(5000), rand(0)),
+        (np.append(rand(3000), top), np.append(rand(2000), [top, top])),
+        (rand(7000, 50), rand(9000, 50)),
+        (rand(tile - 1), rand(tile + 1)), (rand(tile), rand(tile)),
+        # past merge.SPLIT_TILES tiles: the ends from the split kernel
+        (rand(2_500_000), rand(2_000_000)),
+        (rand(2_200_000, 1000), rand(2_200_000, 1000)),
+    ]
+    assert -(-(4_400_000) // tile) >= merge.SPLIT_TILES
+    for a, b in cases:
+        ta, tb = ops.keys_to_device(a, cuda), ops.keys_to_device(b, cuda)
+        gk, gs = merge.merge_pair_cuda(ta, tb)
+        wk, ws = merge.merge_pair_plain(ta, tb)
+        assert torch.equal(gk, wk) and torch.equal(gs, ws), (a.size, b.size)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_store_equals_cpu_store(cuda):
     from test_torch_store import gen_ops, read_batches

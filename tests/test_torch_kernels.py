@@ -19,6 +19,8 @@ from repro.core.memtable import WriteAheadLog as RefWAL
 from repro.core.run import build_run as ref_build_run
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro.kernels.merge_path import merge_path_partition as \
+    ref_merge_path_partition
 from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.faults import CHUNK, crc32c_rows, crc32c_rows_torch
 from repro_torch.core.memtable import WriteAheadLog
@@ -293,3 +295,165 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         merge.merge_pair_cuda(keys, keys)
     assert set(ops.launch_counts().values()) == {0}
+
+
+# ------------------------------------------------- the kernels' plans (CPU)
+def test_fastmod_equals_remainder_at_the_edges():
+    """Lemire's fastmod with a 64-bit magic, as the bloom build kernels
+    reduce positions: equal to % for 32-bit numerators and divisors."""
+    rng = np.random.default_rng(15)
+    nums = [0, 1, 31, 32, 33, 2**31 - 1, 2**31, 2**32 - 33, 2**32 - 32,
+            2**32 - 31, 2**32 - 2, 2**32 - 1] \
+        + rng.integers(0, 2**32, 300).tolist()
+    divs = [1, 2, 3, 32, 64, 96, 2**16, 2**31, 2**32 - 64, 2**32 - 33,
+            2**32 - 32, 2**32 - 1] \
+        + (rng.integers(1, 2**27, 40) * 32).tolist() \
+        + rng.integers(1, 2**32, 40).tolist()
+    for d in divs:
+        magic = bloom.fastmod_magic(d)
+        assert 0 <= magic < 2**64
+        assert [bloom.fastmod(a, magic, d) for a in nums] == \
+            [a % d for a in nums]
+
+
+SMEM = bloom.H100_SMEM_OPTIN
+SWITCH = SMEM // 4          # the largest filter, in words, of one block
+
+
+@pytest.mark.parametrize("n,m_words,k", [
+    (0, 1, 1), (1, 1, 7), (36_158, 11_300, 7), (1, SWITCH, 7),
+    (100_000, SWITCH, 20), (1, SWITCH + 1, 7), (1_000_000, SWITCH + 1, 1),
+    (1_000_000, 2048 * 29, 7), (1_000_000, 2048 * 29 + 1, 20),
+    (1_000_000, 2048 * 30 - 1, 7), (10_000_000, 3_125_000, 7),
+    (2**31, (2**32 - 32) // 32, 7), (5, 2**22 + 3, 3)])
+def test_build_plan_covers_keys_and_words_once(n, m_words, k):
+    """Chunks of keys and slices of words each cover their range exactly
+    once; a bucket block's positions fit its stage and its shared memory,
+    a slice's words fit one block's, and the bucket blocks cover the SMs
+    while the keys allow."""
+    plan = bloom.build_plan(n, m_words, k, SMEM, bloom.H100_SMS)
+    assert plan.blocks == max(1, -(-n // plan.keys_per_block))
+    assert (plan.blocks - 1) * plan.keys_per_block < max(n, 1) \
+        <= plan.blocks * plan.keys_per_block
+    sw = plan.slice_words
+    starts = [s * sw for s in range(plan.n_slices)]
+    ends = [min(s + sw, m_words) for s in starts]
+    assert starts[0] == 0 and ends[-1] == m_words
+    assert all(e > s for s, e in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    assert plan.n_slices <= bloom.MAX_SLICES
+    assert plan.keys_per_block * k <= plan.stage <= bloom.STAGE
+    assert bloom.bucket_smem(plan.stage, plan.n_slices) <= SMEM
+    assert sw * 4 <= SMEM
+    if plan.stage > bloom.MIN_STAGE:
+        assert plan.blocks >= bloom.H100_SMS
+    assert plan.cap % 8 == 0
+    assert plan.cap >= n * k * (1 << plan.slice_shift) / (32 * m_words)
+    assert plan.offset_bytes == (2 if plan.slice_shift <= 16 else 4)
+    assert 12 <= plan.slice_shift <= 20
+
+
+def test_build_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        bloom.build_plan(10, 0, 7)
+    with pytest.raises(ValueError):
+        bloom.build_plan(10, 1 << 27, 7)      # 2^32 bits
+    with pytest.raises(ValueError):
+        bloom.build_plan(10, 100, 0)
+
+
+@pytest.mark.parametrize("n,m_words,k", [(20_000, SWITCH + 1, 7),
+                                         (30_000, 2048 * 29 + 5, 3),
+                                         (6_000, 2048 * 40, 20),
+                                         (3_000, 11_300, 7)])
+def test_build_plan_rebuilds_the_filter_slice_by_slice(n, m_words, k):
+    """The build kernels' arithmetic in plain torch: positions by fastmod,
+    bucketed by slice as in-slice offsets, each slice's words set on their
+    own.  Random keys stay inside every segment's cap, and the slices'
+    words, laid end to end, are ``build_plain``'s and the reference's."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    plan = bloom.build_plan(n, m_words, k, SMEM, bloom.H100_SMS)
+    m_bits = 32 * m_words
+    magic = bloom.fastmod_magic(m_bits)
+    h1, h2 = (t.tolist() for t in bloom.hash_pair(dev(keys)))
+    pos = torch.tensor([bloom.fastmod((a + j * b) & bloom.M32, magic, m_bits)
+                        for a, b in zip(h1, h2) for j in range(k)])
+    slice_of = pos >> plan.slice_shift
+    counts = torch.bincount(slice_of, minlength=plan.n_slices)
+    assert int(counts.max()) <= plan.cap
+    assert int(counts.sum()) == n * k
+    words = []
+    for s in range(plan.n_slices):
+        offs = pos[slice_of == s] & ((1 << plan.slice_shift) - 1)
+        nw = min(plan.slice_words, m_words - s * plan.slice_words)
+        bitmap = torch.zeros(nw * 32, dtype=torch.int64)
+        bitmap[offs] = 1
+        words.append((bitmap.view(nw, 32)
+                      << torch.arange(32, dtype=torch.int64)).sum(1))
+    got = bloom.u32_to_i32(torch.cat(words))
+    assert torch.equal(got, bloom.build_plain(dev(keys), m_words, k))
+    lo, hi = ref_ops.split_u64(keys)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32),
+        ref_ref.bloom_build_ref(np.asarray(lo), np.asarray(hi), m_words, k))
+
+
+MERGE_CASES = [(0, 1), (1, 0), (1, 5000), (5000, 1), (2048, 2048),
+               (2047, 2049), (3000, 7000), (4096, 0), (10_000, 10)]
+
+
+@pytest.mark.parametrize("na,nb", MERGE_CASES)
+@pytest.mark.parametrize("dups", [False, True])
+def test_merge_path_splits_equal_the_reference_partition(na, nb, dups):
+    """The tile splits of the merge kernel (one binary search of the merge
+    path per tile diagonal) against the reference's host
+    ``merge_path_partition``, with duplicates within and across sides."""
+    rng = np.random.default_rng(na * 7 + nb + dups)
+    hi = 40 if dups else 2**64 - 1
+    a = np.sort(rng.integers(0, hi, na, dtype=np.uint64))
+    b = np.sort(rng.integers(0, hi, nb, dtype=np.uint64))
+    for tile in (merge.TILE, 256):
+        got = merge.merge_path_splits_plain(dev(a), dev(b), tile)
+        ba, bb = ref_merge_path_partition(a, b, tile)
+        np.testing.assert_array_equal(got.numpy(), ba)
+        d = merge.tile_diagonals(na + nb, tile)
+        np.testing.assert_array_equal((d - got).numpy(), bb)
+
+
+@pytest.mark.parametrize("na,nb", MERGE_CASES + [(4000, 4000)])
+def test_merge_tiles_cover_the_output_once_and_merge_to_the_contract(na, nb):
+    """Tiles of TILE outputs at the splits: each takes a contiguous range
+    of a and of b, the ranges cover both inputs exactly once, and merging
+    each tile on its own (stable, a first) gives ``merge_pair_plain``."""
+    rng = np.random.default_rng(na + 3 * nb)
+    a = np.sort(rng.integers(0, 3 * (na + nb) + 1, na, dtype=np.uint64))
+    b = np.sort(rng.integers(0, 3 * (na + nb) + 1, nb, dtype=np.uint64))
+    ta, tb = dev(a), dev(b)
+    ia = merge.merge_path_splits_plain(ta, tb).tolist()
+    d = merge.tile_diagonals(na + nb).tolist()
+    jb = [x - y for x, y in zip(d, ia)]
+    assert ia[0] == jb[0] == 0 and ia[-1] == na and jb[-1] == nb
+    assert all(x <= y for x, y in zip(ia, ia[1:]))
+    assert all(x <= y for x, y in zip(jb, jb[1:]))
+    assert all(e - s == min(merge.TILE, na + nb - s)
+               for s, e in zip(d, d[1:]))
+    keys, src = [], []
+    for t in range(len(d) - 1):
+        ka, kb = ta[ia[t]:ia[t + 1]], tb[jb[t]:jb[t + 1]]
+        order = torch.sort(torch.cat([ka, kb]), stable=True).indices
+        keys.append(torch.cat([ka, kb])[order])
+        src.append(torch.cat([torch.arange(ia[t], ia[t + 1]),
+                              torch.arange(jb[t], jb[t + 1])
+                              | merge.FROM_B])[order])
+    want = merge.merge_pair_plain(ta, tb)
+    assert torch.equal(torch.cat(keys), want[0])
+    assert torch.equal(torch.cat(src), want[1])
+
+
+def test_launch_sizes_reset_with_the_counts():
+    bloom.LAUNCH_SIZES["bloom_build"].append(5)
+    merge.LAUNCH_SIZES["merge_pair"].append((1, 2))
+    assert ops.launch_sizes() == {"bloom_build": [5], "merge_pair": [(1, 2)]}
+    ops.reset_launch_counts()
+    assert ops.launch_sizes() == {"bloom_build": [], "merge_pair": []}
