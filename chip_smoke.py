@@ -32,15 +32,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 the bloom build also at a flush's size and at an upper
                 level's, the merge also at an L0 run into a level and at
                 two flushes, each with the bytes its own design moves and
-                its device time by kernel;
-  4. equivalence — one seeded op sequence on a CUDA store and a CPU store:
-                bit-identical trees, IOStats and multi_get answers;
+                its device time by kernel; the bloom probe at the shapes a
+                read wave gives it (PROBE_SHAPES), warm and L2-cold, beside
+                builds of it that gather one position or all k at a time;
+  4. equivalence — one seeded op sequence on a CUDA store and a CPU store,
+                with a snapshot taken mid-load: bit-identical trees,
+                IOStats, multi_get answers, and scans, seeks and iterator
+                streams on the current state and under the snapshot; the
+                snapshot's release leaves no pin and frees device memory;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
                 write buffer, 10 bits per key), every answer checked; the
                 load's last chunk under the profiler (device time by
-                kernel), and the size distribution of every bloom-build
-                and merge launch;
+                kernel), and the size distribution of every bloom-build,
+                merge and probe launch; then, on the same store, seekrandom
+                (2,000 seeks) and YCSB workload E's scans (2,000 of 1..100
+                entries), every answer checked (the ``range`` line);
   6. kernel launches on phase 5, each store kernel's must be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
                 AutumnKV: three waves of four 512-token requests (cold,
@@ -53,6 +60,7 @@ script exits non-zero before any phase runs.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -61,6 +69,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -90,7 +99,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:66"),
 }
 DESIGN = {    # name -> what the kernel's design is, for the kernels line
-    "bloom_probe": "one thread per key, L2 gathers",
+    "bloom_probe": "one thread per key; its positions gathered two at a "
+                   "time, stopping after the first pair with a clear bit; "
+                   "fastmod for % m; grid from the SM count",
     "bloom_build": "shared-memory bitsets, no global atomic per key bit: "
                    "bucket positions by 2^12-2^16-bit slice (shared "
                    "histogram and counting sort, 16-bit offsets, one "
@@ -283,7 +294,131 @@ def bloom_build_row(torch, bloom, keys, bpk: float, label: str) -> dict:
                 n_keys * (HASH_OPS + k * PROBE_OPS)))
 
 
-def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
+# The probe's shapes on the read path: (label, keys a launch probes,
+# keys of the run's filter, share of the probed keys that the run holds),
+# from phase 5's record of one read wave (``probe_record``: keys, words and
+# the keys the filter passed, less its false positives): L0 is empty when
+# the waves run, so a wave probes L1, L2, L3 and L4 in turn.
+PROBE_SHAPES = (
+    ("first run of a wave (L1)", 49_077, 144_632, 0.010),
+    ("middle level (L3)", 44_753, 1_735_584, 0.125),
+    ("deepest level (L4)", 39_150, 6_942_336, 0.58),
+)
+
+
+def probe_work(torch, bloom, q, bits, k):
+    """(distinct filter words, bit tests) that the probe needs: each key's
+    positions up to its first clear bit."""
+    h1, h2 = bloom.hash_pair(q)
+    pos = torch.stack([((h1 + i * h2) & 0xFFFFFFFF) % (bits.numel() * 32)
+                       for i in range(k)], 1)
+    bit = ((bits[pos >> 5].to(torch.int64) & 0xFFFFFFFF) >> (pos & 31)) & 1
+    needed = torch.cat([torch.ones_like(bit[:, :1]),
+                        torch.cumprod(bit, 1)[:, :-1]], 1).bool()
+    return int(torch.unique(pos[needed] >> 5).numel()), int(needed.sum())
+
+
+def cold_l2_ms(torch, fn, q, bits) -> tuple:
+    """Device ms of ``fn(q, bits)`` with L2 cold: copies of the inputs in
+    turn, together three times the 50 MB L2, as CUDA-graph replays; and
+    the number of copies."""
+    copies = math.ceil(150e6 / (q.numel() * 8 + bits.numel() * 4))
+    pairs = [(q.clone(), bits.clone()) for _ in range(copies)]
+    turn = itertools.cycle(pairs)
+    ms = time_ms(torch, lambda: fn(*next(turn)), max(2 * copies, 20),
+                 graph=True)
+    return ms, copies
+
+
+# Builds of csrc/bloom.cu that differ from the shipped probe only in the
+# positions a key gathers together (the shipped kernel takes two): one at a
+# time, stopping at the first clear bit, and all k at once.
+PROBE_VARIANTS = {"early_exit": 1, "all_k": 8}
+
+
+def start_variant_builds(_build) -> dict:
+    """nvcc of every :data:`PROBE_VARIANTS` build of csrc/bloom.cu, started
+    beside the main build; none for a source without the variants (an
+    older checkout)."""
+    src = _build.CSRC / "bloom.cu"
+    if "BLOOM_PROBE_BATCH" not in src.read_text():
+        return {}
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name, batch in PROBE_VARIANTS.items():
+        out = _build.BUILD / f"libbloom_{name}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
+               f"-DBLOOM_PROBE_BATCH={batch}", "-o", str(out), str(src)]
+        started[name] = out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return started
+
+
+def load_variants(_build, started: dict):
+    """The variant libraries and their compiler lines, once built."""
+    libs, logs = {}, {}
+    argtypes, restype = _build.SIGNATURES["bloom"]["bloom_probe_launch"]
+    for name, (out, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the {name} probe:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        lib.bloom_probe_launch.argtypes = argtypes
+        lib.bloom_probe_launch.restype = restype
+        libs[name] = lib
+        logs[name] = ptxas_lines(log).get("bloom_probe_kernel")
+    return libs, logs
+
+
+def variant_probe(torch, bloom, lib, keys, bits, k):
+    """A variant build's probe, launched as ``bloom.probe_cuda`` launches
+    the kernel (outside the launch counts)."""
+    out = torch.empty(keys.numel(), dtype=torch.bool, device=keys.device)
+    rc = lib.bloom_probe_launch(
+        keys.data_ptr(), keys.numel(), bits.data_ptr(), bits.numel(), k,
+        out.data_ptr(), bloom.card_limits(keys.device)[1],
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"variant bloom_probe: CUDA error {rc}")
+    return out
+
+
+def probe_row(torch, bloom, q, bits, k, shape: str, variants=None) -> dict:
+    """bloom_probe against probe_plain on ``q``; warm and L2-cold graph
+    replays, eager calls, and each variant build's times on the same
+    inputs."""
+    got = bloom.probe_cuda(q, bits, k)
+    want = bloom.probe_plain(q, bits, k)
+    err = max_abs_err(torch, got, want)
+    words, tests = probe_work(torch, bloom, q, bits, k)
+    n_q = q.numel()
+    cold, copies = cold_l2_ms(torch, lambda a, b: bloom.probe_cuda(a, b, k),
+                              q, bits)
+    row = dict(
+        shape=shape, max_abs_err=err, maybe=int(want.sum()),
+        ms=time_ms(torch, lambda: bloom.probe_cuda(q, bits, k), 50,
+                   graph=True),
+        eager_ms=time_ms(torch, lambda: bloom.probe_cuda(q, bits, k), 50),
+        ms_cold_l2=cold, cold_copies=copies, filter_mb=bits.numel() * 4 / 1e6,
+        plain_ms=time_ms(torch, lambda: bloom.probe_plain(q, bits, k), 5),
+        library_ms=None,
+        **bound(n_q * 9 + words * 4, n_q * HASH_OPS + tests * PROBE_OPS))
+    for name, lib in (variants or {}).items():
+        def call(a, b, lib=lib):
+            return variant_probe(torch, bloom, lib, a, b, k)
+        got = call(q, bits)
+        row[f"{name}_max_abs_err"] = max_abs_err(torch, got, want)
+        row[f"{name}_ms"] = time_ms(torch, lambda: call(q, bits), 50,
+                                    graph=True)
+        row[f"{name}_ms_cold_l2"] = cold_l2_ms(torch, call, q, bits)[0]
+        err = max(err, row[f"{name}_max_abs_err"])
+    if err:
+        raise AssertionError(f"bloom_probe differs from its plain version "
+                             f"at {shape}")
+    return row
+
+
+def kernel_phase(torch, ops, bloom, merge, rng, dev, variants=None) -> dict:
     """The store's kernels against their plain versions at the main path's
     shapes; returns the headline row per kernel."""
     rows = {}
@@ -302,35 +437,35 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
         if row["max_abs_err"]:
             raise AssertionError(f"bloom_build differs from its plain "
                                  f"version at {row['shape']}")
+    # bloom probe: the first design's row (one 65,536-key wave, half
+    # members, against the 10M-key filter), then the read path's shapes
     m_words = -(-n_keys * bpk // 32)
     k = round(bpk * np.log(2))
     bits = bloom.build_cuda(keys, m_words, k)
-    # bloom probe: one 65,536-key wave against that filter, half members
     n_q = 65_536
     q = torch.cat([keys[torch.randperm(n_keys, device=dev)[:n_q // 2]],
                    ops.keys_to_device(rng.integers(0, 2**64 - 1, n_q // 2,
                                                    dtype=np.uint64), dev)])
-    got = bloom.probe_cuda(q, bits, k)
-    want = bloom.probe_plain(q, bits, k)
-    err = max_abs_err(torch, got, want)
-    # bytes the probe needs: keys in, flags out, and the distinct filter
-    # words read up to each key's first clear bit
-    h1, h2 = bloom.hash_pair(q)
-    pos = torch.stack([((h1 + i * h2) & 0xFFFFFFFF) % (m_words * 32)
-                       for i in range(k)], 1)
-    bit = ((bits[pos >> 5].to(torch.int64) & 0xFFFFFFFF) >> (pos & 31)) & 1
-    needed = torch.cat([torch.ones_like(bit[:, :1]),
-                        torch.cumprod(bit, 1)[:, :-1]], 1).bool()
-    words = int(torch.unique(pos[needed] >> 5).numel())
-    ms = time_ms(torch, lambda: bloom.probe_cuda(q, bits, k), 50)
-    plain = time_ms(torch, lambda: bloom.probe_plain(q, bits, k), 10)
-    rows["bloom_probe"] = dict(
-        shape=f"{n_q} keys, {m_words} words, k={k}", max_abs_err=err, ms=ms,
-        plain_ms=plain, library_ms=None,
-        **bound(n_q * 9 + words * 4,
-                n_q * HASH_OPS + int(needed.sum()) * PROBE_OPS))
+    rows["bloom_probe"] = probe_row(torch, bloom, q, bits, k,
+                                    f"{n_q} keys, {m_words} words, k={k}",
+                                    variants)
     emit({"phase": "kernel", "kernel": "bloom_probe", **rows["bloom_probe"]})
-    del keys, bits, q, pos, bit, needed
+    del bits, q
+    for label, n_q, n_filter, share in PROBE_SHAPES:
+        fkeys = keys[:n_filter]
+        m_words = -(-n_filter * bpk // 32)
+        bits = bloom.build_cuda(fkeys, m_words, k)
+        n_in = round(n_q * share)
+        q = torch.cat([fkeys[torch.randperm(n_filter, device=dev)[:n_in]],
+                       ops.keys_to_device(rng.integers(
+                           0, 2**64 - 1, n_q - n_in, dtype=np.uint64), dev)])
+        q = q[torch.randperm(n_q, device=dev)]
+        row = probe_row(torch, bloom, q, bits, k,
+                        f"{label}: {n_q} keys ({n_in} members), "
+                        f"{m_words} words, k={k}", variants)
+        emit({"phase": "kernel", "kernel": "bloom_probe", **row})
+        del bits, q
+    del keys
     # merge: balanced with shared keys, skewed, the u64 maximum, an L0 run
     # into a level, and two flush-sized runs
     def draw(n):
@@ -565,8 +700,25 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
 
 
 # ------------------------------------------------------------ phase 4
+def range_answers(store, starts, lengths, snapshot=None) -> list:
+    """The store's answers to scans, seeks and a streaming iterator from
+    ``starts`` (under ``snapshot`` if given), and one multi_get."""
+    scans = [store.scan(int(a), int(n), snapshot=snapshot)
+             for a, n in zip(starts, lengths)]
+    seeks = [store.seek(int(a), snapshot=snapshot) for a in starts]
+    it = store.iterator(snapshot=snapshot)
+    it.seek(int(starts[0]))
+    streamed = list(itertools.islice(it, 3000))
+    del it           # the iterator's cursors hold the runs
+    gets = store.multi_get([int(a) for a in starts], snapshot=snapshot)
+    return [scans, seeks, streamed, gets]
+
+
 def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
-    """One seeded op sequence on a CUDA store and a CPU store."""
+    """One seeded op sequence on a CUDA store and a CPU store, with a
+    snapshot taken mid-load: bit-identical trees, IOStats, point and range
+    answers on the current state and under the snapshot; after the
+    snapshot's release no pin is left and its runs leave the device."""
     cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
                        bits_per_key=10)
     stores = [rt.LSMStore(cfg, device="cuda"), rt.LSMStore(cfg, device="cpu")]
@@ -576,15 +728,22 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
     lens = rng.integers(0, 120, n_entries)
     vals = [bytes([int(k) & 0xFF]) * int(ln) for k, ln in zip(keys, lens)]
     dels = rng.choice(keys, n_entries // 20)
-    load_s = []
+    starts = np.concatenate([rng.choice(keys, 150), rng.choice(dels, 50),
+                             keys[:5], rng.integers(0, 2**64 - 1, 50,
+                                                    dtype=np.uint64)])
+    lengths = rng.integers(1, 101, starts.size)
+    load_s, snaps = [], []
     for s in stores:
         t0 = time.perf_counter()
         s.put_batch(keys[:n_entries // 2].tolist(), vals[:n_entries // 2])
         s.delete_batch(dels.tolist())
+        s.flush()
+        snaps.append(s.get_snapshot())
         for k in keys[n_entries // 2:n_entries // 2 + 500].tolist():
             s.put(k, b"single")
         s.delete(int(keys[0]))
         s.put_batch(keys[n_entries // 2:].tolist(), vals[n_entries // 2:])
+        s.delete_batch(dels[::2].tolist())
         s.flush()
         torch.cuda.synchronize()
         load_s.append(time.perf_counter() - t0)
@@ -592,6 +751,9 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
                for m in (0, 1, 700, 65_536)] + [keys[:4096].tolist()]
     answers = [[s.multi_get(b) for b in batches] for s in stores]
     gets = [[s.get(int(k)) for k in keys[:64]] for s in stores]
+    ranges = [range_answers(s, starts, lengths) for s in stores]
+    snap_ranges = [range_answers(s, starts, lengths, snap)
+                   for s, snap in zip(stores, snaps)]
     cols = [rt.columns_of(s) for s in stores]
     stats = [dataclasses.asdict(s.stats) for s in stores]
     same_tree = len(cols[0]["levels"]) == len(cols[1]["levels"]) and all(
@@ -601,18 +763,43 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
                 == np.asarray(rb[f]).shape for f in ra)
             for ra, rb in zip(la, lb))
         for la, lb in zip(cols[0]["levels"], cols[1]["levels"]))
+    del cols
+    # the snapshot's runs: held on the device until the release
+    held = [len(s.storage) for s in stores]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for s, snap in zip(stores, snaps):
+        s.release_snapshot(snap)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
     out = dict(phase="equivalence", entries=n_entries,
-               runs=sum(len(lvl) for lvl in cols[0]["levels"]),
+               runs=sum(len(lvl) for lvl in stores[0]._levels),
                levels=stores[0].num_levels_in_use,
                compactions=stats[0]["compactions"],
                cuda_load_s=load_s[0], cpu_load_s=load_s[1],
+               range_reads=stats[0]["range_reads"],
+               scanned_entries=sum(len(a) for a in ranges[0][0]),
+               snapshot_scanned_entries=sum(len(a) for a in snap_ranges[0][0]),
                same_tree=same_tree, same_stats=stats[0] == stats[1],
                same_answers=answers[0] == answers[1] and gets[0] == gets[1],
-               same_memtable=cols[0]["memtable"] == cols[1]["memtable"])
+               same_range_answers=ranges[0] == ranges[1],
+               same_snapshot_answers=snap_ranges[0] == snap_ranges[1],
+               snapshot_differs_from_current=snap_ranges[0] != ranges[0],
+               same_memtable=rt.columns_of(stores[0])["memtable"]
+               == rt.columns_of(stores[1])["memtable"],
+               runs_held_by_snapshot=held[0] - len(stores[0].storage),
+               pins_after_release=[s.manifest.total_pin_refs()
+                                   for s in stores],
+               device_bytes_freed_by_release=freed)
     emit(out)
-    if not (same_tree and out["same_stats"] and out["same_answers"]
-            and out["same_memtable"]):
+    ok = ("same_tree", "same_stats", "same_answers", "same_range_answers",
+          "same_snapshot_answers", "snapshot_differs_from_current",
+          "same_memtable")
+    if not all(out[name] for name in ok):
         raise AssertionError("CUDA store differs from the CPU store")
+    if out["pins_after_release"] != [0, 0] or held[0] != held[1] \
+            or out["runs_held_by_snapshot"] <= 0 or freed <= 0:
+        raise AssertionError("the released snapshot's runs were not freed")
     return out
 
 
@@ -643,11 +830,13 @@ def profile_window(torch, fn, by_kernel: bool = False) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    by_name = {}
+    by_name, copies = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
+            if e.name.startswith("Memcpy"):
+                copies[e.name] = copies.get(e.name, 0) + 1
     if not by_name:     # no device-side events: read the op averages
         by_name = {e.key: e.self_device_time_total
                    for e in prof.key_averages()
@@ -658,7 +847,8 @@ def profile_window(torch, fn, by_kernel: bool = False) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                device_idle_share=1 - busy_us / wall_us,
-               top_device_ms={name[:80]: us / 1e3 for name, us in top})
+               top_device_ms={name[:80]: us / 1e3 for name, us in top},
+               copies=copies)
     if by_kernel:
         short = {}
         for name, us in by_name.items():
@@ -712,8 +902,152 @@ def launch_size_report(ops) -> dict:
                     [min(a, b) for a, b in pairs]))
 
 
-def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
-    """fillrandom then readrandom at LevelDB's db_bench defaults."""
+def seek_oracle(run_keys, mem_keys, mem_items, starts) -> list:
+    """db_bench Seek under the reference's approximate liveness: the
+    smallest key >= start that any run holds (a deleted key's tombstone
+    too), or the memtable's first key >= start if that one is live."""
+    out = []
+    for a, b in zip(np.searchsorted(run_keys, starts).tolist(),
+                    np.searchsorted(mem_keys, starts).tolist()):
+        cands = [int(run_keys[a])] if a < run_keys.size else []
+        if b < mem_keys.size and mem_items[b][2] is not None:
+            cands.append(int(mem_keys[b]))
+        out.append(min(cands) if cands else None)
+    return out
+
+
+@contextmanager
+def counting_refills(iterator_module):
+    """Counts MergingIterator refills inside the block."""
+    cls = iterator_module.MergingIterator
+    refill, count = cls._refill, [0]
+
+    def counted(self):
+        count[0] += 1
+        return refill(self)
+
+    cls._refill = counted
+    try:
+        yield count
+    finally:
+        cls._refill = refill
+
+
+def range_phase(torch, rt, ops, store, live, deleted, rng,
+                n_seeks: int = 2000, n_scans: int = 2000) -> dict:
+    """seekrandom (db_bench) and short scans (YCSB workload E: lengths
+    uniform in 1..100) on the loaded store; start keys half at live keys,
+    a quarter at deleted keys, a quarter uniform over u64.  Every scan is
+    held against the next live keys and their values, every seek against
+    :func:`seek_oracle` over the runs' keys as they lie on the device and
+    the memtable; 50 more scans run under the profiler."""
+    if not hasattr(store, "scan"):
+        return dict(phase="range", skipped="this checkout has no range reads")
+
+    def draw(n):
+        return np.concatenate([
+            rng.choice(live, n // 2), rng.choice(deleted, n // 4),
+            rng.integers(0, 2**64 - 1, n - n // 2 - n // 4, dtype=np.uint64)])
+
+    seek_starts, scan_starts = draw(n_seeks), draw(n_scans)
+    lengths = rng.integers(1, 101, n_scans)
+    st0 = store.stats
+    t = time.perf_counter()
+    got_seeks = [store.seek(int(a)) for a in seek_starts.tolist()]
+    seek_s = time.perf_counter() - t
+    st1 = store.stats
+    scan_ms, got_scans = [], []
+    with counting_refills(rt.core.iterator) as refills:
+        for a, n in zip(scan_starts.tolist(), lengths.tolist()):
+            t = time.perf_counter()
+            got_scans.append(store.scan(a, n))
+            scan_ms.append((time.perf_counter() - t) * 1e3)
+    per_scan = store.stats.delta(st1)
+    # the oracles
+    runs = [r for lvl in store._levels for r in lvl if len(r)]
+    run_keys = np.unique(np.concatenate([ops.keys_from_device(r.keys)
+                                         for r in runs]))
+    mem_keys, mem_items = store.memtable.sorted_entries()
+    want_seeks = seek_oracle(run_keys, mem_keys, mem_items, seek_starts)
+    bad_seeks = sum(g != w for g, w in zip(got_seeks, want_seeks))
+    at = np.searchsorted(live, scan_starts)
+    bad_scans = 0
+    for a, n, got in zip(at.tolist(), lengths.tolist(), got_scans):
+        want_keys = live[a:a + n]
+        want = list(zip(want_keys.tolist(), user_values(want_keys)))
+        bad_scans += got != want
+    scanned = sum(len(g) for g in got_scans)
+    # 50 more scans under the profiler: idle share and copies per scan
+    prof_starts, prof_lens = draw(50), rng.integers(1, 101, 50)
+    prof = profile_window(torch, lambda: [
+        store.scan(int(a), int(n)) for a, n in zip(prof_starts, prof_lens)])
+    copies = prof.pop("copies", {})
+    out = dict(
+        phase="range", seeks=n_seeks, seek_s=seek_s,
+        seeks_per_s=n_seeks / seek_s,
+        seek_ms_mean=seek_s / n_seeks * 1e3,
+        seek_stats={k: v for k, v in dataclasses.asdict(
+            st1.delta(st0)).items() if v},
+        scans=n_scans, scan_s=sum(scan_ms) / 1e3,
+        scans_per_s=n_scans / (sum(scan_ms) / 1e3),
+        scanned_entries=scanned,
+        entries_per_s=scanned / (sum(scan_ms) / 1e3),
+        scan_ms_p50=float(np.percentile(scan_ms, 50)),
+        scan_ms_p99=float(np.percentile(scan_ms, 99)),
+        per_scan=dict(blocks_read=per_scan.blocks_read / n_scans,
+                      runs_touched=per_scan.runs_touched_range / n_scans,
+                      refills=refills[0] / n_scans),
+        levels_in_use=store.num_levels_in_use, runs=len(runs),
+        memtable_entries=int(mem_keys.size),
+        profile_50_scans=prof,
+        d2h_copies_per_scan=sum(c for n, c in copies.items()
+                                if "DtoH" in n) / 50,
+        h2d_copies_per_scan=sum(c for n, c in copies.items()
+                                if "HtoD" in n) / 50,
+        copies_50_scans=copies, wrong_seeks=bad_seeks, wrong_scans=bad_scans)
+    if bad_seeks or bad_scans:
+        emit(out)
+        raise AssertionError(f"range reads: {bad_seeks} wrong seeks, "
+                             f"{bad_scans} wrong scans")
+    return out
+
+
+@contextmanager
+def recording_probes(torch, bloom):
+    """Records every bloom_probe launch inside the block: keys, filter
+    words, k and the keys the filter passed (one wait each, outside any
+    timed or profiled window)."""
+    record, probe = [], bloom.probe_cuda
+
+    def recorded(keys, bits, k):
+        out = probe(keys, bits, k)
+        record.append(dict(keys=keys.numel(), words=bits.numel(), k=k,
+                           maybe=int(out.sum())))
+        return out
+
+    bloom.probe_cuda = recorded
+    try:
+        yield record
+    finally:
+        bloom.probe_cuda = probe
+
+
+def probe_size_report(ops) -> dict:
+    """Every bloom_probe launch since the last reset, by filter size:
+    launches and the keys each probed (a run's filter keeps its size while
+    the store is read)."""
+    by_words = {}
+    for n, words in ops.launch_sizes().get("bloom_probe", []):
+        by_words.setdefault(words, []).append(n)
+    return {str(w): dict(launches=len(ns), keys_min=min(ns),
+                         keys_p50=float(np.percentile(ns, 50)),
+                         keys_max=max(ns))
+            for w, ns in sorted(by_words.items())}
+
+
+def dbbench_phase(torch, rt, ops, bloom, rng, n_entries: int) -> dict:
+    """fillrandom then readrandom at LevelDB's db_bench defaults, then
+    seekrandom and short scans on the same store (``range_phase``)."""
     cfg = rt.LSMConfig(policy="garnering", T=2.0, c=0.8,
                        memtable_bytes=4 << 20, base_level_bytes=10 << 20,
                        l0_compaction_trigger=4, bits_per_key=10,
@@ -773,9 +1107,13 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
         if (sorted_keys[at] == parts[1]).any():
             raise AssertionError("absent key drawn from the live set")
         q = np.concatenate(parts)
-        t = time.perf_counter()
-        got = store.multi_get(q.tolist())
-        dt = time.perf_counter() - t
+        with recording_probes(torch, bloom) if w == 0 else nullcontext() \
+                as record:
+            t = time.perf_counter()
+            got = store.multi_get(q.tolist())
+            dt = time.perf_counter() - t
+        if w == 0:
+            probe_record = record
         want = user_values(parts[0]) + [None] * (wave // 2)
         if got != want:
             bad = sum(g != x for g, x in zip(got, want))
@@ -792,6 +1130,8 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
         store.multi_get(np.concatenate(w).tolist()) for w in waves))
     if answers != [user_values(lv) + [None] * (wave // 2) for lv, _ in waves]:
         raise AssertionError("wrong answers in the profiled waves")
+    probe_sizes = probe_size_report(ops)
+    ranges = range_phase(torch, rt, ops, store, live, np.sort(deleted), rng)
     run_bytes = sum(t.numel() * t.element_size()
                     for lvl in store._levels for r in lvl
                     for t in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
@@ -808,7 +1148,8 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
         compaction_mb_per_s=load_stats.bytes_compacted / 1e6
         / load_spent["compaction"] if load_spent["compaction"] else None,
         load_profile_last_chunk=dict(entries=int(kc.size), **load_profile),
-        launch_sizes=launch_sizes,
+        launch_sizes=launch_sizes, probe_launch_sizes=probe_sizes,
+        probe_record=probe_record,
         bytes_compacted=load_stats.bytes_compacted,
         write_amp=load_stats.write_amplification(),
         read_keys=checked, read_s=sum(wave_s),
@@ -823,6 +1164,7 @@ def dbbench_phase(torch, rt, ops, rng, n_entries: int) -> dict:
         read_stats={k: v for k, v in dataclasses.asdict(read_stats).items()
                     if v})
     emit(out)
+    emit(ranges)
     return out
 
 
@@ -973,7 +1315,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "src": str(Path(rt.__file__).parent)})
     t = time.perf_counter()
+    started = start_variant_builds(_build)
     built = _build.build_all(force=True)
+    variants, variant_ptxas = load_variants(_build, started)
     build_s = time.perf_counter() - t
     mma = tensor_core_instructions(_build)
     flash_mma = {n: c for n, c in mma.items()
@@ -981,6 +1325,7 @@ def main() -> int:
     emit({"phase": "build", "built": built, "s": build_s,
           "ptxas": {n: ptxas_lines(log)
                     for n, log in _build.build_logs.items()},
+          "ptxas_probe_variants": variant_ptxas,
           "tensor_core_instructions": mma})
     if not flash_mma or not all(flash_mma.values()):
         raise AssertionError(f"bf16 flash attention without tensor-core "
@@ -988,7 +1333,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rows = {}
     if "kernels" in phases:
-        rows.update(kernel_phase(torch, ops, bloom, merge, rng, dev))
+        rows.update(kernel_phase(torch, ops, bloom, merge, rng, dev,
+                                 variants))
     if "attention" in phases:
         rows.update(attention_rows(torch, attention, dev, args.seed))
     torch.cuda.empty_cache()
@@ -997,7 +1343,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches = {}
     if "db_bench" in phases:
-        dbbench_phase(torch, rt, ops, rng, args.entries)
+        dbbench_phase(torch, rt, ops, bloom, rng, args.entries)
         launches = ops.launch_counts()
         idle = [k for k in STORE_KERNELS if launches[k] == 0]
         if idle:

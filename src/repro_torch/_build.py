@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "bloom": {
         "bloom_probe_launch": ([c_void_p, c_int64, c_void_p, c_int64, c_int,
-                                c_void_p, c_void_p], c_int),
+                                c_void_p, c_int, c_void_p], c_int),
         "bloom_smem_optin": ([c_int, POINTER(c_int)], c_int),
         "bloom_build_launch": ([c_void_p, c_int64, c_void_p, c_int64, c_int,
                                 c_int64, c_int, c_int, c_int, c_int64,

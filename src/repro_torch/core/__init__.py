@@ -3,6 +3,7 @@ runs on the device.
 
 Public API:
     LSMStore, LSMConfig           — the storage engine
+    MergingIterator               — streaming range reads over the runs
     make_policy, Garnering, ...   — merge policies (paper §2.3/§3.1)
     BloomFilter, allocate_fprs    — device filters + Monkey/Autumn allocation
     SortedRun, build_run, merge_runs — device runs and compaction
@@ -14,6 +15,7 @@ from .bloom import (BloomFilter, allocate_fprs, bits_for_fpr,
 from .convert import columns_of, store_from_columns
 from .engine import LSMConfig, LSMStore
 from .faults import CorruptionError, crc32c, crc32c_rows, crc32c_rows_torch
+from .iterator import MergingIterator
 from .manifest import Manifest, RunStorage, Version
 from .memtable import Memtable, WriteAheadLog
 from .policy import (POLICIES, CompactionTask, Garnering, LazyLeveling,
@@ -22,7 +24,7 @@ from .run import SortedRun, build_run, levels_bit_equal, merge_runs
 from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats, StatsHub
 
 __all__ = [
-    "LSMStore", "LSMConfig", "IOStats", "StatsHub",
+    "LSMStore", "LSMConfig", "MergingIterator", "IOStats", "StatsHub",
     "BloomFilter", "allocate_fprs", "bits_for_fpr", "bloom_geometry",
     "theoretical_fpr", "Manifest", "RunStorage", "Version", "Memtable",
     "WriteAheadLog", "POLICIES", "CompactionTask", "Garnering",

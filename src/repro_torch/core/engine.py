@@ -2,8 +2,12 @@
 
 Counterpart of ``repro.core.engine`` in synchronous mode: memtable + WAL on
 the host, immutable sorted runs whose columns live on the store's device, a
-pluggable merge policy (Garnering by default), the MVCC manifest,
-Monkey/Autumn bloom allocation, and the L0 write stall.  Every read and
+pluggable merge policy (Garnering by default), the MVCC manifest with
+refcounted snapshots, Monkey/Autumn bloom allocation, and the L0 write
+stall.  Reads are point reads (``get``/``multi_get``) and range reads
+(``seek``, ``scan`` and ``iterator`` over the merging iterator, with
+``scan_scalar`` as their oracle), each on the current state or a
+snapshot.  Every read and
 write is accounted in the block-I/O cost model (``types.IOStats``) exactly
 as the reference accounts it, so the two can be held against each other
 counter by counter.
@@ -25,11 +29,13 @@ import torch
 
 from ..kernels import ops
 from .bloom import allocate_fprs, bits_for_fpr
-from .manifest import Manifest, RunStorage
+from .iterator import MergingIterator
+from .manifest import Manifest, RunStorage, Version
 from .memtable import Memtable, WriteAheadLog
 from .policy import CompactionTask, MergePolicy, make_policy
-from .run import SortedRun, merge_runs
-from .types import BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, IOStats, StatsHub
+from .run import SortedRun, merge_runs, seek_batch
+from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, TOMBSTONE_LEN, IOStats,
+                    StatsHub)
 
 
 @dataclasses.dataclass
@@ -60,18 +66,28 @@ class LSMConfig:
     async_compaction: bool = False
     cache_bytes: int = 0
     pin_l0_bytes: int = 0
+    cache_policy: str = "clock"
+    compaction_workers: int = 1
+    slowdown_trigger: int = 64
+    stall_trigger: int = 256
     shards: int = 1
     use_range_views: bool = False
+    shard_splitters: Optional[Tuple[int, ...]] = None
     telemetry: Optional[object] = None
-    faults: Optional[object] = None
-    tuner: Optional[object] = None
-    paranoid_checks: bool = False
     rebalance_interval_ops: int = 0
+    rebalance_ratio: float = 2.0
+    paranoid_checks: bool = False
+    faults: Optional[object] = None
+    bg_max_retries: int = 2
+    tuner: Optional[object] = None
 
 
-_UNSUPPORTED = ("async_compaction", "cache_bytes", "pin_l0_bytes", "shards",
-                "use_range_views", "telemetry", "faults", "tuner",
-                "paranoid_checks", "rebalance_interval_ops")
+_UNSUPPORTED = ("async_compaction", "cache_bytes", "pin_l0_bytes",
+                "cache_policy", "compaction_workers", "slowdown_trigger",
+                "stall_trigger", "shards", "use_range_views",
+                "shard_splitters", "telemetry", "rebalance_interval_ops",
+                "rebalance_ratio", "paranoid_checks", "faults",
+                "bg_max_retries", "tuner")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -302,24 +318,39 @@ class LSMStore:
         return bits_for_fpr(float(fprs[level])) if counts[level] > 0 else cfg.bits_per_key
 
     # -------------------------------------------------------------- reads
-    def _runs_newest_first(self):
-        for r in reversed(self._levels[0]):
+    def _read_state(self, snapshot: Optional[Version] = None
+                    ) -> List[List[SortedRun]]:
+        if snapshot is None:
+            return self._levels
+        return snapshot.runs(self.storage)
+
+    def _mem_sources(self) -> List[Memtable]:
+        """Memtables in resolution order: in the synchronous store, the
+        active memtable alone."""
+        return [self.memtable]
+
+    def _runs_newest_first(self, levels: List[List[SortedRun]]):
+        for r in reversed(levels[0]):
             yield r
-        for lvl in self._levels[1:]:
+        for lvl in levels[1:]:
             for r in reversed(lvl):
                 yield r
 
-    def get(self, key: int) -> Optional[bytes]:
-        """Point read: ``multi_get([key])[0]``, with the same accounting as
-        the reference's scalar ``get``."""
-        return self.multi_get([key])[0]
+    def get(self, key: int, snapshot: Optional[Version] = None
+            ) -> Optional[bytes]:
+        """Point read: ``multi_get([key], snapshot)[0]``, with the same
+        accounting as the reference's scalar ``get``."""
+        return self.multi_get([key], snapshot)[0]
 
-    def multi_get(self, keys: Sequence[int]) -> List[Optional[bytes]]:
+    def multi_get(self, keys: Sequence[int],
+                  snapshot: Optional[Version] = None
+                  ) -> List[Optional[bytes]]:
         """Batched point reads: semantically ``[get(k) for k in keys]``.
 
         Keys missing from the memtable go to the device once; then, run by
         run, newest first, the keys still pending are probed with the bloom
-        kernel and located with one searchsorted.  Aggregate IOStats
+        kernel and located with one searchsorted.  A snapshot read skips
+        the memtable and walks the snapshot's runs.  Aggregate IOStats
         accounting is identical to the reference's.
         """
         st = self._stats.local()
@@ -331,7 +362,7 @@ class LSMStore:
             return results
         pending = np.arange(n, dtype=np.int64)
         mt = self.memtable
-        if len(mt):
+        if snapshot is None and len(mt):
             keep = []
             for j, k in enumerate(keys_arr.tolist()):
                 hit = mt.get(k)
@@ -344,7 +375,7 @@ class LSMStore:
             return results
         q = ops.keys_to_device(keys_arr[pending], self.device)
         use_bloom = self.config.bits_per_key > 0
-        for run in self._runs_newest_first():
+        for run in self._runs_newest_first(self._read_state(snapshot)):
             if pending.size == 0:
                 break
             if len(run) == 0:
@@ -356,6 +387,150 @@ class LSMStore:
                     results[int(pending[p])] = values[p]
                 pending = pending[~found]
         return results
+
+    def seek(self, key: int, snapshot: Optional[Version] = None
+             ) -> Optional[int]:
+        """The first key >= ``key`` (db_bench Seek).
+
+        Cost: one seek + one block read per run with a valid position; one
+        read-back brings every run's position and key.
+
+        Tombstone handling is approximate, as in the reference (a cost
+        probe, not a correctness surface — ``scan`` is): memtable entries
+        are liveness-filtered but run entries are not, so a deleted key
+        stops shadowing once its tombstone flushes.
+        """
+        st = self._stats.local()
+        st.range_reads += 1
+        best: Optional[int] = None
+        mems = self._mem_sources() if snapshot is None else []
+        runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
+                if len(r)]
+        for run, i, k in zip(runs, *seek_batch(runs, int(key))):
+            st.runs_touched_range += 1
+            st.seeks += 1
+            if i < len(run):
+                st.blocks_read += 1
+                if best is None or k < best:
+                    best = k
+        for mt in mems:
+            for k, s, v in mt.scan(int(key), limit=1):
+                if v is not None and (best is None or k < best):
+                    best = k
+        return best
+
+    def iterator(self, snapshot: Optional[Version] = None,
+                 chunk: int = 512) -> MergingIterator:
+        """A streaming merging iterator over the current (or snapshot)
+        state: one cursor per run + the memtable (none under a snapshot);
+        see ``core.iterator`` for the merge and its accounting.  Run
+        cursors read a frozen set of runs; take a snapshot for isolation
+        from later memtable writes."""
+        mems = self._mem_sources() if snapshot is None else None
+        runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
+                if len(r)]
+        return MergingIterator(runs, memtables=mems,
+                               stats=self._stats.local(), chunk=chunk)
+
+    def scan(self, start_key: int, count: int,
+             snapshot: Optional[Version] = None) -> List[Tuple[int, bytes]]:
+        """Range read: first ``count`` live entries with key >= start_key,
+        through the merging iterator (range views are not ported)."""
+        self._stats.local().range_reads += 1
+        return self.iterator(snapshot).scan(int(start_key), count)
+
+    def scan_scalar(self, start_key: int, count: int,
+                    snapshot: Optional[Version] = None
+                    ) -> List[Tuple[int, bytes]]:
+        """Reference range read (the pre-iterator seek-retry
+        implementation), kept as the differential oracle: slices ``count``
+        candidates from every run, sort-merges the Python lists, and retries
+        with a 4x larger window when a truncated run could still hide
+        smaller keys.  It reads the device run by run, column by column."""
+        st = self._stats.local()
+        st.range_reads += 1
+        mems = self._mem_sources() if snapshot is None else []
+        runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
+                if len(r)]
+        per_run_take = max(count, 1)
+        while True:
+            cand_k: List[np.ndarray] = []
+            cand_s: List[np.ndarray] = []
+            cand_v: List[List[Optional[bytes]]] = []
+            # Results are only valid up to the smallest last-key among
+            # truncated run slices.
+            frontier: Optional[int] = None
+            seek_positions = []
+            for run in runs:
+                i = run.seek_idx(int(start_key))
+                seek_positions.append(i)
+                k, s, l, v = run.slice_from(i, per_run_take)
+                if i + per_run_take < len(run) and len(k):
+                    fk = int(k[-1])
+                    frontier = fk if frontier is None else min(frontier, fk)
+                cand_k.append(k)
+                cand_s.append(s)
+                cand_v.append([None if l[j] == TOMBSTONE_LEN
+                               else bytes(v[j, :l[j]])
+                               for j in range(len(k))])
+            mem_items: List[Tuple[int, int, Optional[bytes]]] = []
+            for mt in mems:
+                mem_items.extend(mt.scan(int(start_key)))
+            merged = self._merge_candidates(cand_k, cand_s, cand_v, mem_items)
+            live = [(k, v) for k, v in merged if v is not None and
+                    (frontier is None or k <= frontier)][:count]
+            if len(live) >= count or frontier is None:
+                # Account I/O for the final pass only.
+                end_key = live[-1][0] if live else None
+                for run, i in zip(runs, seek_positions):
+                    st.runs_touched_range += 1
+                    st.seeks += 1
+                    if i >= len(run):
+                        continue
+                    if end_key is None:
+                        consumed_end = i + 1
+                    else:
+                        after = (len(run) if end_key == (1 << 64) - 1
+                                 else run.seek_idx(end_key + 1))
+                        consumed_end = max(after, i + 1)
+                    st.blocks_read += run.blocks_spanned(i, consumed_end)
+                return live
+            per_run_take *= 4
+
+    @staticmethod
+    def _merge_candidates(cand_k, cand_s, cand_v, mem_items):
+        ks: List[int] = []
+        ss: List[int] = []
+        vs: List[Optional[bytes]] = []
+        for k_arr, s_arr, v_list in zip(cand_k, cand_s, cand_v):
+            ks.extend(int(x) for x in k_arr)
+            ss.extend(int(x) for x in s_arr)
+            vs.extend(v_list)
+        for k, s, v in mem_items:
+            ks.append(k)
+            ss.append(s)
+            vs.append(v)
+        order = sorted(range(len(ks)), key=lambda i: (ks[i], -ss[i]))
+        out: List[Tuple[int, Optional[bytes]]] = []
+        last_key = None
+        for i in order:
+            if ks[i] != last_key:
+                out.append((ks[i], vs[i]))
+                last_key = ks[i]
+        return out
+
+    # ----------------------------------------------------------- snapshots
+    def get_snapshot(self) -> Version:
+        """Acquire a reader reference on the current version: its runs stay
+        on the device across any number of later flushes and compactions
+        until the matching ``release_snapshot`` (refcounted)."""
+        return self.manifest.pin_current()
+
+    def release_snapshot(self, snapshot: Version) -> None:
+        """Drop one reader reference; at the last one, the runs that only
+        the snapshot held are freed."""
+        if self.manifest.unpin(snapshot.version_id):
+            self.manifest.gc()
 
     # -------------------------------------------------------- inspection
     def level_summary(self) -> List[dict]:

@@ -5,8 +5,9 @@ level); the runs themselves hold their columns on the device.  Flushes and
 compactions install a new version atomically.  The metadata log mirrors
 RocksDB's MANIFEST: an append-only record of version edits with an fsync
 watermark; the runs of the last 8 durable versions stay alive, as in the
-reference.  Reader pins (snapshots) and crash recovery of the log are left
-to later slices.
+reference, and so do the runs of every version a reader has pinned
+(snapshots, refcounted).  Crash recovery of the log is left to a later
+slice.
 """
 from __future__ import annotations
 
@@ -85,6 +86,8 @@ class Manifest:
         self._mu = threading.RLock()
         self._log: List[Version] = []
         self._synced_upto = 0  # number of durable versions
+        self._pinned: Dict[int, Version] = {}  # long-lived reader snapshots
+        self._pin_refs: Dict[int, int] = {}    # version_id -> reader refcount
         self._next_id = 0
         self.commit(levels=[[]], max_level=1, last_seq=0, stats=IOStats())
         self.fsync(IOStats())
@@ -115,10 +118,48 @@ class Manifest:
         with self._mu:
             return self._log[-1]
 
+    def pin(self, v: Version) -> Version:
+        """Pin a version for a long-lived reader: its runs survive GC even
+        after the version leaves the manifest's durable tail.  Pins are
+        refcounted: the version stays pinned until every reader unpins."""
+        with self._mu:
+            self._pinned[v.version_id] = v
+            self._pin_refs[v.version_id] = \
+                self._pin_refs.get(v.version_id, 0) + 1
+            return v
+
+    def pin_current(self) -> Version:
+        """Atomically read-and-pin the newest version."""
+        with self._mu:
+            return self.pin(self._log[-1])
+
+    def unpin(self, version_id: int) -> bool:
+        """Drop one reader reference; the version unpins at refcount zero.
+
+        Returns True iff this release actually unpinned the version (callers
+        skip GC work while other readers still hold it)."""
+        with self._mu:
+            refs = self._pin_refs.get(version_id, 0) - 1
+            if refs > 0:
+                self._pin_refs[version_id] = refs
+                return False
+            self._pin_refs.pop(version_id, None)
+            return self._pinned.pop(version_id, None) is not None
+
+    def pin_count(self, version_id: int) -> int:
+        with self._mu:
+            return self._pin_refs.get(version_id, 0)
+
+    def total_pin_refs(self) -> int:
+        """Sum of all reader references (leak audit hook)."""
+        with self._mu:
+            return sum(self._pin_refs.values())
+
     def live_run_ids(self) -> List[int]:
+        """Runs of the durable tail and of every pinned version."""
         with self._mu:
             ids: List[int] = []
-            for v in self._log:
+            for v in self._log + list(self._pinned.values()):
                 for lvl in v.levels:
                     ids.extend(lvl)
             return ids

@@ -5,13 +5,14 @@ insertion order keyed by uint64 user key (newest write to a key wins, as in
 a skiplist memtable).  The WAL is an append-only in-memory byte log with an
 explicit fsync barrier counter, with the reference's frames byte for byte.
 Both stay on the host; :meth:`Memtable.to_run` packs the columns in numpy
-and uploads them to the device once.  Rotation (async mode) and WAL replay
-(recovery) are left to later slices.
+and uploads them to the device once; :meth:`Memtable.scan` serves range
+reads from a key-ordered copy built once after the last write.  Rotation
+(async mode) and WAL replay (recovery) are left to later slices.
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, SEQ_DTYPE,
                     TOMBSTONE_LEN, IOStats)
 
 _PUT, _DEL = 0, 1
+Entry = Tuple[int, int, Optional[bytes]]    # (key, seq, value|None)
 # WAL record frame (DESIGN.md §16.2): crc32c(4) | body(21) | payload(vlen)
 # where the checksum covers body+payload.  Recovery verifies every frame and
 # replays up to the first bad one — length fields are never trusted alone.
@@ -171,9 +173,12 @@ class Memtable:
         self.block_size = block_size
         self._data: Dict[int, Tuple[int, Optional[bytes]]] = {}
         self._bytes = 0
+        # (keys, items) in key order, built by the first scan after a write
+        self._sorted: Optional[Tuple[np.ndarray, List[Entry]]] = None
 
     def put(self, key: int, seq: int, value: Optional[bytes]):
         """value=None is a tombstone."""
+        self._sorted = None
         prev = self._data.get(key)
         if prev is not None:
             self._bytes -= self.key_bytes + (len(prev[1]) if prev[1] is not None else 0)
@@ -194,6 +199,7 @@ class Memtable:
         engine passes its chunk-sizing cumsum; ignored when duplicates
         collapse entries).
         """
+        self._sorted = None
         data = self._data
         kb = self.key_bytes
         n = len(keys)
@@ -213,6 +219,25 @@ class Memtable:
 
     def get(self, key: int) -> Optional[Tuple[int, Optional[bytes]]]:
         return self._data.get(key)
+
+    def sorted_entries(self) -> Tuple[np.ndarray, List[Entry]]:
+        """Every ``(key, seq, value|None)`` in key order, and the keys as a
+        uint64 array.  Built once after the last write and shared by every
+        reader until the next one; a write replaces the lists, never
+        mutates them, so a reader keeps the view it took."""
+        if self._sorted is None:
+            items = [(k, s, v) for k, (s, v) in sorted(self._data.items())]
+            keys = np.fromiter((e[0] for e in items), KEY_DTYPE, len(items))
+            self._sorted = (keys, items)
+        return self._sorted
+
+    def scan(self, start_key: int,
+             limit: Optional[int] = None) -> List[Entry]:
+        """``(key, seq, value|None)`` from ``start_key`` on, in key order
+        (the first ``limit`` of them if given)."""
+        keys, items = self.sorted_entries()
+        i = int(np.searchsorted(keys, np.uint64(start_key)))
+        return items[i:] if limit is None else items[i:i + limit]
 
     @property
     def size_bytes(self) -> int:
@@ -279,3 +304,4 @@ class Memtable:
     def clear(self):
         self._data.clear()
         self._bytes = 0
+        self._sorted = None

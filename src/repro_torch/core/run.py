@@ -185,6 +185,35 @@ class SortedRun:
         rest = keys[~hit] if n_hit else keys
         return found, values, rest
 
+    # ------------------------------------------------------------ range reads
+    def seek_idx(self, key: int) -> int:
+        """Index of the first entry whose u64 key is >= ``key``."""
+        return seek_batch([self], key)[0][0]
+
+    def slice_from(self, start_idx: int, count: int):
+        """Entries [start_idx, start_idx+count) on the host, as the
+        reference holds them: (u64 keys, u64 seqs, int32 vlens, uint8
+        (m, Vmax) vals)."""
+        e = min(start_idx + count, len(self))
+        return (ops.keys_from_device(self.keys[start_idx:e]),
+                self.seqs[start_idx:e].cpu().numpy().view(np.uint64),
+                self.vlens[start_idx:e].cpu().numpy(),
+                self.vals[start_idx:e].cpu().numpy())
+
+    def values_at(self, rows) -> List[Optional[bytes]]:
+        """The values at ``rows`` (None at a tombstone), with one
+        device-to-host copy (see :func:`fetch_values`)."""
+        return fetch_values([(self, rows)])[0]
+
+    def blocks_spanned(self, start_idx: int, end_idx: int) -> int:
+        """Number of blocks touched to read entries [start_idx, end_idx)."""
+        if end_idx <= start_idx or start_idx >= len(self):
+            return 0
+        end_idx = min(end_idx, len(self))
+        first, last = torch.stack([self.block_of[start_idx],
+                                   self.block_of[end_idx - 1]]).tolist()
+        return last - first + 1
+
     def point_get(self, key: int, stats: IOStats,
                   use_bloom: bool = True) -> Tuple[bool, Optional[bytes]]:
         """(found, value_or_None_if_tombstone) of one u64 key: the batch
@@ -193,6 +222,65 @@ class SortedRun:
         found, values, _ = self.point_get_batch(
             ops.keys_to_device([key], self.device), stats, use_bloom)
         return bool(found[0]), values[0]
+
+
+def seek_batch(runs: Sequence[SortedRun], key: int
+               ) -> Tuple[List[int], List[Optional[int]]]:
+    """Each non-empty run's first index whose u64 key is >= ``key``, and
+    the u64 key there (None past the run's end).  One searchsorted and one
+    gather a run are launched, and one read-back brings all of them."""
+    if not runs:
+        return [], []
+    mapped = ops.order_of(key)
+    parts = []
+    for r in runs:
+        i = torch.searchsorted(r.keys, mapped).view(1)
+        parts += [i, r.keys[i.clamp(max=len(r) - 1)]]
+    flat = torch.cat(parts).tolist()
+    idx = flat[0::2]
+    keys = [None if i >= len(r) else k + _SIGN
+            for r, i, k in zip(runs, idx, flat[1::2])]
+    return idx, keys
+
+
+def fetch_values(runs_rows: Sequence[Tuple[SortedRun, "np.ndarray"]]
+                 ) -> List[List[Optional[bytes]]]:
+    """The values at ``rows`` of each ``(run, rows)`` (None at a
+    tombstone), with one device-to-host copy for all of them: the row
+    indices go up in one copy (pinned and asynchronous on a card), each
+    run gathers its lengths and rows on the device, and one buffer of
+    lengths then payloads comes back."""
+    if not runs_rows:
+        return []
+    sizes = [len(rows) for _, rows in runs_rows]
+    idx = torch.from_numpy(np.concatenate(
+        [np.asarray(rows, dtype=np.int64) for _, rows in runs_rows]))
+    dev = runs_rows[0][0].device
+    if dev.type == "cuda":
+        idx = idx.pin_memory().to(dev, non_blocking=True)
+    lens, vals = [], []
+    o = 0
+    for (run, _), m in zip(runs_rows, sizes):
+        rows = idx[o:o + m]
+        o += m
+        lens.append(run.vlens[rows])
+        vals.append(run.vals[rows].reshape(-1))
+    n = int(idx.numel())
+    buf = torch.cat([torch.cat(lens).view(torch.uint8)] + vals).cpu().numpy()
+    all_lens = buf[:4 * n].view(np.int32).tolist()
+    flat = buf[4 * n:].tobytes()
+    out: List[List[Optional[bytes]]] = []
+    o = off = 0
+    for (run, _), m in zip(runs_rows, sizes):
+        vmax = run.vals.shape[1]
+        vals_r: List[Optional[bytes]] = []
+        for ln in all_lens[o:o + m]:
+            vals_r.append(None if ln == TOMBSTONE_LEN
+                          else flat[off:off + ln])
+            off += vmax
+        out.append(vals_r)
+        o += m
+    return out
 
 
 def levels_bit_equal(levels_a: Sequence[Sequence[SortedRun]],

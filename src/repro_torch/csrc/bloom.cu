@@ -14,12 +14,19 @@
 // layout of `build_bits` and of the Pallas kernel.  Key bit j of a key is
 // pos_j = (h1 + j * h2 mod 2^32) mod m_bits.
 //
-// Probe.  What bounds it: memory.  It reads 8 bytes of key, writes one
-// byte, and gathers up to k bitset words at random; the deepest run's
-// filter (about 12.5 MB at 10M keys and 10 bits per key) sits in the 50 MB
-// L2, so the gathers are L2 reads.  One thread per key, stopping at the
-// first clear bit.
-//
+// Probe.  What bounds it: memory latency, at the read path's shapes.  It
+// reads 8 bytes of key, writes one byte, and gathers up to k bitset words
+// at random: at 40k-65k keys a launch (0.2-0.5 us of bytes at the memory
+// rate) is a few microseconds of launch and round trips.  Every run's
+// filter (8.7 MB for the deepest run of a 10M-entry store at 10 bits a
+// key, 12.5 MB at 10M keys) fits the 50 MB L2.  The first design gave each
+// key a dependent chain of up to k gathers behind a 32-bit `%`; here a key
+// gathers its positions two at a time (kProbeBatch), `% m_bits` is
+// fastmod, and the grid is sized from the SM count.  Measured slower on
+// the H100 and dropped: all k positions at once (more instructions and
+// sectors for the absent keys that most launches hold), and two or four
+// keys a thread with 16-byte key loads and packed flag stores (fewer
+// warps to hide each thread's longer serial work).
 // Build.  What bounds it: the function reads 8 bytes a key and writes the
 // filter once, but it sets n * k bits at random places.  One global atomic
 // OR per bit (the first design) ran at the L2 atomic units' rate, about 88 G
@@ -52,6 +59,7 @@
 // in shared memory and copying each slice's run with one warp.  The bucket
 // pass is bound by its shared-memory atomics and accesses at random banks,
 // not by the hash, so it hashes twice.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -104,25 +112,49 @@ __device__ __forceinline__ void wait_for_previous_kernel() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-__global__ void bloom_probe_kernel(const int64_t* __restrict__ keys,
-                                   int64_t n,
-                                   const uint32_t* __restrict__ bits,
-                                   uint32_t m_bits, int k,
-                                   uint8_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  uint32_t h1, h2;
-  hash_pair(keys[i], h1, h2);
-  uint8_t maybe = 1;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t pos = (h1 + static_cast<uint32_t>(j) * h2) % m_bits;
-    if (((__ldg(bits + (pos >> 5)) >> (pos & 31u)) & 1u) == 0u) {
-      maybe = 0;
-      break;
+// ---------------------------------------------------------------- probe
+constexpr int kProbeThreads = 256;  // threads a block, one key each
+constexpr int kProbeBlocksPerSm = 2048 / kProbeThreads;
+// Bit positions a key gathers together before it tests them.  chip_smoke.py
+// builds this source again with 1 (a dependent chain that stops at the
+// first clear bit) and with 8 (all k positions at once for k <= 8) and
+// times both beside this one.
+#ifndef BLOOM_PROBE_BATCH
+#define BLOOM_PROBE_BATCH 2
+#endif
+constexpr int kProbeBatch = BLOOM_PROBE_BATCH;
+
+// One "maybe" byte a key.  A key's positions are gathered kProbeBatch at a
+// time, the batch's loads independent of each other, and the key stops
+// after the first batch that finds a clear bit: an absent key (about half
+// the filter's bits are set) usually stops after one round trip, a member
+// takes ceil(k / kProbeBatch) round trips instead of k.  The grid strides
+// over the keys, up to kProbeBlocksPerSm blocks on each SM.
+__global__ void __launch_bounds__(kProbeThreads)
+    bloom_probe_kernel(const int64_t* __restrict__ keys, int64_t n,
+                       const uint32_t* __restrict__ bits, uint32_t m_bits,
+                       uint64_t magic, int k, uint8_t* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    uint32_t h1, h2;
+    hash_pair(__ldg(keys + i), h1, h2);
+    bool maybe = true;
+    for (int j0 = 0; maybe && j0 < k; j0 += kProbeBatch) {
+      uint32_t pos[kProbeBatch], word[kProbeBatch];
+#pragma unroll
+      for (int jj = 0; jj < kProbeBatch; ++jj) {
+        pos[jj] = fastmod(h1 + static_cast<uint32_t>(j0 + jj) * h2, magic,
+                          m_bits);
+        word[jj] = j0 + jj < k ? __ldg(bits + (pos[jj] >> 5)) : ~0u;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kProbeBatch; ++jj)
+        maybe &= ((word[jj] >> (pos[jj] & 31u)) & 1u) != 0;
     }
+    out[i] = maybe;
   }
-  out[i] = maybe;
 }
 
 // ---------------------------------------------------------------- build
@@ -292,12 +324,6 @@ __global__ void bloom_set_kernel(const Off* __restrict__ seg,
     bits[w0 + w] = slice_words[w];
 }
 
-constexpr int kThreads = 256;
-
-unsigned int grid_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
 // Lets `Kernel` take `bytes` of dynamic shared memory on the current
 // device, setting the attribute only when a launch needs more than before
 // (so a steady stream of launches makes no extra runtime call, and the
@@ -374,14 +400,21 @@ int launch_sliced(const int64_t* keys, int64_t n, uint32_t* bits,
 
 extern "C" {
 
-// keys: (n,) int64 order-mapped; bits: (m_words,) uint32; out: (n,) uint8.
+// keys: (n,) int64 order-mapped, n >= 1; bits: (m_words,) uint32; out:
+// (n,) uint8; the grid covers the keys, up to kProbeBlocksPerSm blocks on
+// each of `sm_count` SMs.
 int bloom_probe_launch(const void* keys, int64_t n, const void* bits,
-                       int64_t m_words, int k, void* out, void* stream) {
-  bloom_probe_kernel<<<grid_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+                       int64_t m_words, int k, void* out, int sm_count,
+                       void* stream) {
+  const int64_t blocks = std::min<int64_t>(
+      (n + kProbeThreads - 1) / kProbeThreads,
+      static_cast<int64_t>(sm_count) * kProbeBlocksPerSm);
+  const uint32_t m_bits = static_cast<uint32_t>(m_words * 32);
+  bloom_probe_kernel<<<static_cast<unsigned int>(std::max<int64_t>(blocks, 1)),
+                       kProbeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), n,
-      static_cast<const uint32_t*>(bits),
-      static_cast<uint32_t>(m_words * 32), k, static_cast<uint8_t*>(out));
+      static_cast<const uint32_t*>(bits), m_bits, fastmod_magic(m_bits), k,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

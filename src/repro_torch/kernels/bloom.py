@@ -11,8 +11,9 @@ The plain versions carry u32 lanes in int64 masked to 32 bits (torch has no
 arithmetic on uint32), and split each 32-bit product so that no int64
 product overflows.  The ``*_cuda`` wrappers launch the kernels of
 ``csrc/bloom.cu``; each adds one to :data:`LAUNCHES` where it launches (a
-build is two kernels, counted once) and :func:`build_cuda` appends its key
-count to :data:`LAUNCH_SIZES`.  :func:`build_plan` sizes the build's
+build is two kernels, counted once) and appends its size to
+:data:`LAUNCH_SIZES` (keys of a build; keys and filter words of a
+probe).  :func:`build_plan` sizes the build's
 slices and passes from the filter, the keys and the card's shared memory
 and SM count; :func:`fastmod` is the exact remainder the kernels use.
 """
@@ -21,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -32,8 +33,9 @@ M64 = (1 << 64) - 1
 
 # kernel launches by wrapper (see ops.launch_counts)
 LAUNCHES = {"bloom_probe": 0, "bloom_build": 0}
-# keys of every bloom_build launch, in order (see ops.launch_sizes)
-LAUNCH_SIZES: Dict[str, List[int]] = {"bloom_build": []}
+# keys of every bloom_build launch, and (keys, filter words) of every
+# bloom_probe launch, in order (see ops.launch_sizes)
+LAUNCH_SIZES: Dict[str, list] = {"bloom_build": [], "bloom_probe": []}
 
 H100_SMEM_OPTIN = 232_448    # bytes of shared memory one block may take
 H100_SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -228,12 +230,14 @@ def probe_cuda(keys: torch.Tensor, bits: torch.Tensor,
     _check_geometry(bits.numel(), k)
     out = torch.empty(n, dtype=torch.bool, device=keys.device)
     lib = _build.load("bloom")
+    sms = card_limits(keys.device)[1]
     with torch.cuda.device(keys.device):
         rc = lib.bloom_probe_launch(
             keys.data_ptr(), n, bits.data_ptr(), bits.numel(), k,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
     _build.check("bloom", rc, "bloom_probe")
     LAUNCHES["bloom_probe"] += 1
+    LAUNCH_SIZES["bloom_probe"].append((n, bits.numel()))
     return out
 
 

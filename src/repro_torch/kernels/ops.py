@@ -37,7 +37,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_sizes() -> Dict[str, list]:
     """The elements of every store-kernel launch since the last reset:
-    keys of each ``bloom_build``, ``(na, nb)`` of each ``merge_pair``."""
+    keys of each ``bloom_build``, ``(keys, filter words)`` of each
+    ``bloom_probe``, ``(na, nb)`` of each ``merge_pair``."""
     return {**_bloom.LAUNCH_SIZES, **_merge.LAUNCH_SIZES}
 
 
@@ -69,6 +70,12 @@ def from_order(mapped: np.ndarray, dtype=np.uint64) -> np.ndarray:
     if np.dtype(dtype) == np.uint64:
         return mapped.view(np.uint64) ^ SIGN
     return mapped.astype(dtype)
+
+
+def order_of(key: int) -> int:
+    """One u64 key -> its order-mapped int64 value (a Python int)."""
+    mapped = int(key) ^ (1 << 63)
+    return mapped - (1 << 64) if mapped >= 1 << 63 else mapped
 
 
 def keys_to_device(keys, device) -> torch.Tensor:

@@ -58,6 +58,12 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     assert forbidden_imports(path) == []
 
 
+def test_import_check_covers_every_store_module():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("engine", "iterator", "manifest", "memtable", "run"):
+        assert f"src/repro_torch/core/{module}.py" in names
+
+
 def test_ast_walk_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.core import run\n"
@@ -107,7 +113,11 @@ OFF_DEFAULT = {"async_compaction": True, "cache_bytes": 1 << 20,
                "pin_l0_bytes": 1 << 20, "shards": 2,
                "use_range_views": True, "telemetry": object(),
                "faults": object(), "tuner": object(),
-               "paranoid_checks": True, "rebalance_interval_ops": 100}
+               "paranoid_checks": True, "rebalance_interval_ops": 100,
+               "cache_policy": "lru", "compaction_workers": 2,
+               "slowdown_trigger": 8, "stall_trigger": 16,
+               "shard_splitters": (1 << 63,), "rebalance_ratio": 1.5,
+               "bg_max_retries": 0}
 
 
 @pytest.mark.parametrize("field", sorted(OFF_DEFAULT))
@@ -325,3 +335,73 @@ def test_attention_kernels_are_deterministic_on_the_card(cuda, dtype):
     alone = attention.paged_cuda(q[:1].contiguous(), kp, vp,
                                  bt[:1].contiguous(), ln[:1].contiguous())
     assert torch.equal(alone[0], batch[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 20])
+def test_bloom_probe_equals_plain_on_the_card(cuda, k):
+    """The probe at k 1/7/20 (an odd k leaves the last pair of positions
+    half empty) against filters of 1 word, a flush's and nearly 2^32 bits;
+    0 to a few thousand keys, views at odd element offsets, the u64
+    extremes, and a launch larger than one pass of the grid."""
+    rng = np.random.default_rng(10 + k)
+    keys = ops.keys_to_device(rng.integers(0, 2**64 - 1, 2_600_000,
+                                           dtype=np.uint64), cuda)
+    edge = ops.keys_to_device(np.array([0, 1, 2**63 - 1, 2**63, 2**64 - 2,
+                                        2**64 - 1], np.uint64), cuda)
+    q_all = torch.cat([edge, keys[:1000], keys[200_000:203_000]])
+    ops.reset_launch_counts()
+    for m_words in (1, 11_300, (1 << 27) - 1):
+        bits = bloom.build_cuda(keys[:100_000], m_words, k)
+        for n in (0, 1, 3, 4, 5, 7, 8, 9, 63, 64, 65, 255, 256, 257, 4003):
+            for off in (0, 1, 2, 3):
+                q = q_all[off:off + n]
+                assert torch.equal(bloom.probe_cuda(q, bits, k),
+                                   bloom.probe_plain(q, bits, k)), \
+                    (m_words, n, off)
+        assert torch.equal(bloom.probe_cuda(keys[1:], bits, k),
+                           bloom.probe_plain(keys[1:], bits, k)), m_words
+    sizes = ops.launch_sizes()["bloom_probe"]
+    assert ops.launch_counts()["bloom_probe"] == len(sizes) > 0
+    assert (keys.numel() - 1, (1 << 27) - 1) in sizes
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_store_range_reads_equal_cpu_store(cuda):
+    """scan, seek, the streaming iterator and multi_get on a CUDA store and
+    a CPU store, on the current state and under a snapshot taken mid-load:
+    the same answers and IOStats; no pin left after the release."""
+    from test_torch_store import gen_ops
+    cfg = rt.LSMConfig(memtable_bytes=2 << 10, base_level_bytes=4 << 10,
+                       bits_per_key=10.0)
+    stores = [rt.LSMStore(cfg, device=cuda), rt.LSMStore(cfg, device="cpu")]
+    steps = gen_ops(5, 3000)
+    for kind, args in steps[:len(steps) // 2]:
+        for s in stores:
+            getattr(s, kind)(*args)
+    for s in stores:
+        s.flush()
+    snaps = [s.get_snapshot() for s in stores]
+    for kind, args in steps[len(steps) // 2:]:
+        for s in stores:
+            getattr(s, kind)(*args)
+    starts = [0, 1, 2**63 - 1, 2**63, 2**64 - 1] + list(range(0, 4100, 97))
+
+    def answers(s, snap):
+        it = s.iterator(snapshot=snap)
+        it.seek(50)
+        return ([s.scan(a, 1 + a % 60, snapshot=snap) for a in starts],
+                [s.seek(a, snapshot=snap) for a in starts],
+                list(it), s.multi_get(starts, snapshot=snap),
+                s.scan_scalar(7, 40, snapshot=snap))
+
+    for snap_a, snap_b in ((None, None), tuple(snaps)):
+        assert answers(stores[0], snap_a) == answers(stores[1], snap_b)
+    assert dataclasses.asdict(stores[0].stats) == \
+        dataclasses.asdict(stores[1].stats)
+    for s, snap in zip(stores, snaps):
+        s.release_snapshot(snap)
+        assert s.manifest.total_pin_refs() == 0
+    assert len(stores[0].storage) == len(stores[1].storage)
+    torch.cuda.synchronize()

@@ -453,7 +453,10 @@ def test_merge_tiles_cover_the_output_once_and_merge_to_the_contract(na, nb):
 
 def test_launch_sizes_reset_with_the_counts():
     bloom.LAUNCH_SIZES["bloom_build"].append(5)
+    bloom.LAUNCH_SIZES["bloom_probe"].append((3, 4))
     merge.LAUNCH_SIZES["merge_pair"].append((1, 2))
-    assert ops.launch_sizes() == {"bloom_build": [5], "merge_pair": [(1, 2)]}
+    assert ops.launch_sizes() == {"bloom_build": [5], "bloom_probe": [(3, 4)],
+                                  "merge_pair": [(1, 2)]}
     ops.reset_launch_counts()
-    assert ops.launch_sizes() == {"bloom_build": [], "merge_pair": []}
+    assert ops.launch_sizes() == {"bloom_build": [], "bloom_probe": [],
+                                  "merge_pair": []}

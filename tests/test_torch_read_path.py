@@ -1,0 +1,503 @@
+"""repro_torch's read path on the CPU vs the reference's, case for case.
+
+Every case of ``tests/test_read_path.py``, with one seeded workload going
+into ``repro.core.LSMStore`` and into ``repro_torch.LSMStore(device="cpu")``:
+the same answers from ``get``/``multi_get`` (also under a snapshot),
+``scan``, ``scan_scalar``, ``seek`` and the streaming ``iterator()``, the
+same refill count per scan, and every IOStats field equal after each
+step.  The two Pallas-probe cases hold the port's ``probe_plain`` against
+the reference's kernel (interpret mode) and its numpy filter.  Below them,
+the modules the range reads stand on: ``Memtable.scan``, the run helpers
+at the u64 extremes, and the manifest's reader pins.  All lanes are
+integer: tolerance 0.
+"""
+import dataclasses
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref
+import repro_torch as rt
+from repro.core import iterator as ref_iterator
+from repro.core.bloom import BloomFilter as RefBloomFilter
+from repro.core.types import TOMBSTONE_LEN
+from repro.kernels.ops import bloom_probe_filter
+from repro_torch.core import iterator as port_iterator
+from repro_torch.kernels import bloom, ops
+
+# Six xdist workers share 8 cores with the reference's timing-bounded
+# property tests: one intra-op thread per worker keeps them on time.
+torch.set_num_threads(1)
+
+# all five policies; c only shapes Garnering (c=1 == Leveling, paper §4.1)
+POLICY_C = [
+    ("leveling", 1.0),
+    ("tiering", 1.0),
+    ("lazy-leveling", 1.0),
+    ("qlsm-bush", 1.0),
+    ("garnering", 1.0),
+    ("garnering", 0.8),
+    ("garnering", 0.4),
+]
+IDS = [f"{p}-c{c}" for p, c in POLICY_C]
+EDGE = [0, 2**63 - 1, 2**63, 2**64 - 1]
+
+
+def make_pair(policy: str, c: float, **kw):
+    """(port, reference) stores of one configuration."""
+    base = dict(policy=policy, c=c, T=2.0, memtable_bytes=1 << 11,
+                base_level_bytes=1 << 13, bits_per_key=8,
+                bloom_allocation="monkey")
+    base.update(kw)
+    return (rt.LSMStore(rt.LSMConfig(**base), device="cpu"),
+            ref.LSMStore(ref.LSMConfig(**base)))
+
+
+def seed_of(policy: str, c: float) -> int:
+    return zlib.crc32(f"{policy}-{c}".encode()) % 97 + 1
+
+
+def run_workload(dbs, seed: int, n_ops: int = 1500, key_space: int = 400):
+    """Random puts/deletes/flushes on every store; returns (oracle,
+    snapshots, snap_oracle), the snapshot taken right after a flush
+    mid-workload."""
+    rng = np.random.default_rng(seed)
+    oracle = {}
+    snaps = snap_oracle = None
+    for i in range(n_ops):
+        k = int(rng.integers(0, key_space))
+        u = rng.random()
+        if u < 0.2:
+            for db in dbs:
+                db.delete(k)
+            oracle.pop(k, None)
+        else:
+            v = f"s{seed}i{i}".encode()
+            for db in dbs:
+                db.put(k, v)
+            oracle[k] = v
+        if i == n_ops // 2:
+            snaps = []
+            for db in dbs:
+                db.flush()
+                snaps.append(db.get_snapshot())
+            snap_oracle = dict(oracle)
+        elif u > 0.995:
+            for db in dbs:
+                db.flush()
+    return oracle, snaps, snap_oracle
+
+
+def stats(db) -> dict:
+    return dataclasses.asdict(db.stats)
+
+
+def assert_same_stats(port, reference):
+    assert stats(port) == stats(reference)
+
+
+@pytest.fixture
+def refills(monkeypatch):
+    """Counts ``MergingIterator._refill`` calls, per package."""
+    counts = {"port": 0, "ref": 0}
+    for name, mod in (("port", port_iterator), ("ref", ref_iterator)):
+        orig = mod.MergingIterator._refill
+
+        def counting(self, _orig=orig, _name=name):
+            counts[_name] += 1
+            return _orig(self)
+
+        monkeypatch.setattr(mod.MergingIterator, "_refill", counting)
+    return counts
+
+
+def test_config_has_every_reference_field_but_the_pallas_switches():
+    port = {f.name: f.default for f in dataclasses.fields(rt.LSMConfig)}
+    want = {f.name: f.default for f in dataclasses.fields(ref.LSMConfig)
+            if f.name not in ("use_pallas_bloom", "use_pallas_merge")}
+    assert port == want
+
+
+@pytest.mark.parametrize("policy,c", POLICY_C, ids=IDS)
+def test_multi_get_matches_scalar_get(policy, c):
+    port, reference = make_pair(policy, c)
+    oracle, snaps, snap_oracle = run_workload([port, reference],
+                                              seed_of(policy, c))
+    rng = np.random.default_rng(5)
+    # present, absent, and duplicate keys in one batch
+    queries = list(rng.integers(0, 500, 300)) + [7, 7, 7]
+    deltas = []
+    for db in (port, reference):
+        s0 = db.stats.snapshot()
+        scalar = [db.get(int(k)) for k in queries]
+        d_scalar = db.stats.delta(s0)
+        s1 = db.stats.snapshot()
+        batch = db.multi_get(queries)
+        d_batch = db.stats.delta(s1)
+        assert batch == scalar == [oracle.get(int(k)) for k in queries]
+        assert dataclasses.asdict(d_scalar) == dataclasses.asdict(d_batch)
+        deltas.append(dataclasses.asdict(d_batch))
+    assert deltas[0] == deltas[1]
+    # snapshot reads, scalar and batched
+    want = [snap_oracle.get(int(k)) for k in queries]
+    for db, snap in zip((port, reference), snaps):
+        assert db.multi_get(queries, snapshot=snap) == want
+        assert [db.get(int(k), snapshot=snap) for k in queries[:40]] == \
+            want[:40]
+    assert_same_stats(port, reference)
+
+
+@pytest.mark.parametrize("policy,c", POLICY_C, ids=IDS)
+def test_scan_matches_oracle_and_scalar(policy, c, refills):
+    port, reference = make_pair(policy, c)
+    oracle, snaps, snap_oracle = run_workload([port, reference],
+                                              seed_of(policy, c) + 1)
+    exp = sorted(oracle.items())
+    assert port.scan(0, len(exp) + 10) == reference.scan(0, len(exp) + 10) \
+        == exp
+    rng = np.random.default_rng(6)
+    for start in rng.integers(0, 450, 12):
+        for count in (1, 5, 37):
+            got = port.scan(int(start), count)
+            assert got == reference.scan(int(start), count), (start, count)
+            assert got == port.scan_scalar(int(start), count) \
+                == reference.scan_scalar(int(start), count)
+            assert got == [e for e in exp if e[0] >= start][:count]
+            assert port.seek(int(start)) == reference.seek(int(start))
+            assert_same_stats(port, reference)
+    assert refills["port"] == refills["ref"] > 0
+    # snapshot scans and seeks see the frozen state only
+    snap_exp = sorted(snap_oracle.items())
+    for db, snap in zip((port, reference), snaps):
+        assert db.scan(0, len(snap_exp) + 10, snapshot=snap) == snap_exp
+        assert db.scan_scalar(0, len(snap_exp) + 10, snapshot=snap) == \
+            snap_exp
+    for start in (0, 77, 399, 2**64 - 1):
+        assert port.seek(start, snapshot=snaps[0]) == \
+            reference.seek(start, snapshot=snaps[1])
+    assert_same_stats(port, reference)
+    assert refills["port"] == refills["ref"]
+
+
+def test_iterator_streaming_api():
+    port, reference = make_pair("garnering", 0.8)
+    oracle, _, _ = run_workload([port, reference], seed=13)
+    exp = sorted(oracle.items())
+    for db in (port, reference):
+        it = db.iterator()
+        it.seek(0)
+        assert [e for e in it] == exp
+        # re-seek mid-stream, stream via next()
+        it.seek(200)
+        got = []
+        while True:
+            e = it.next()
+            if e is None:
+                break
+            got.append(e)
+        assert got == [e for e in exp if e[0] >= 200]
+    # a small window: many refills, the same accounting
+    for db in (port, reference):
+        it = db.iterator(chunk=16)
+        it.seek(3)
+        assert list(it) == [e for e in exp if e[0] >= 3]
+    keys = [k for k, _ in exp]
+    assert keys == sorted(set(keys))
+    assert_same_stats(port, reference)
+
+
+def test_multi_get_empty_and_memtable_only():
+    port, reference = make_pair("garnering", 0.8)
+    for db in (port, reference):
+        assert db.multi_get([]) == []
+        db.put(1, b"a")
+        db.delete(2)
+        # memtable-resolved: value, tombstone, miss
+        assert db.multi_get([1, 2, 3]) == [b"a", None, None]
+        assert db.scan(0, 5) == [(1, b"a")]
+        assert db.seek(2) is None and db.seek(0) == 1
+    assert_same_stats(port, reference)
+
+
+def test_scan_interleaves_memtable_and_runs():
+    port, reference = make_pair("garnering", 0.8, memtable_bytes=1 << 14)
+    for db in (port, reference):
+        for k in range(0, 100, 2):
+            db.put(k, b"run")
+        db.flush()
+        for k in range(1, 100, 2):
+            db.put(k, b"mem")           # stays in the memtable
+        db.delete(4)
+        got = db.scan(0, 8)
+        assert got == [(0, b"run"), (1, b"mem"), (2, b"run"), (3, b"mem"),
+                       (5, b"mem"), (6, b"run"), (7, b"mem"), (8, b"run")]
+        assert db.scan_scalar(0, 8) == got
+        # the memtable tombstone hides nothing from seek's run walk
+        assert db.seek(4) == 4
+    assert_same_stats(port, reference)
+
+
+def test_snapshot_pinned_across_many_compactions():
+    """get_snapshot pins the version: its runs survive manifest GC no matter
+    how many commits follow, until release_snapshot; then the pins are back
+    at 0 and the snapshot's runs are gone from the run storage."""
+    port, reference = make_pair("garnering", 0.8)
+    snaps = []
+    for db in (port, reference):
+        for k in range(100):
+            db.put(k, b"old")
+        db.flush()
+        snaps.append(db.get_snapshot())
+    pinned = set(port.storage.ids())
+    for rep in range(30):            # >> the manifest's 8-version tail
+        for db in (port, reference):
+            for k in range(100):
+                db.put(k, f"r{rep}".encode())
+            db.flush()
+    assert pinned <= set(port.storage.ids())
+    for db, snap in zip((port, reference), snaps):
+        assert db.manifest.pin_count(snap.version_id) == 1
+        assert db.get(5, snapshot=snap) == b"old"
+        assert db.multi_get([5, 6, 7], snapshot=snap) == [b"old"] * 3
+        assert db.scan(5, 3, snapshot=snap) == [(5, b"old"), (6, b"old"),
+                                                (7, b"old")]
+        assert db.seek(5, snapshot=snap) == 5
+        it = db.iterator(snapshot=snap)
+        it.seek(98)
+        assert list(it) == [(98, b"old"), (99, b"old")]
+    assert_same_stats(port, reference)
+    for db, snap in zip((port, reference), snaps):
+        db.release_snapshot(snap)
+        assert db.manifest.total_pin_refs() == 0
+        assert db.get(5) == b"r29"
+    assert not pinned & set(port.storage.ids())
+    assert sorted(port.storage.ids()) == \
+        sorted(set(port.manifest.live_run_ids()))
+    assert len(port.storage) == len(reference.storage)
+
+
+def test_snapshot_pins_are_refcounted():
+    port, reference = make_pair("garnering", 0.8)
+    for db in (port, reference):
+        db.put(1, b"x")
+        db.flush()
+    a = [db.get_snapshot() for db in (port, reference)]
+    b = [db.get_snapshot() for db in (port, reference)]
+    for db, sa, sb in zip((port, reference), a, b):
+        assert sa.version_id == sb.version_id
+        assert db.manifest.pin_count(sa.version_id) == 2
+        for k in range(2, 400):
+            db.put(k, b"y" * 20)
+        db.release_snapshot(sa)
+        assert db.manifest.pin_count(sb.version_id) == 1
+        assert db.get(1, snapshot=sb) == b"x"
+        assert db.get(2, snapshot=sb) is None
+        db.release_snapshot(sb)
+        assert db.manifest.total_pin_refs() == 0
+        assert not db.manifest.unpin(sb.version_id)
+    assert len(port.storage) == len(reference.storage)
+
+
+def test_bloom_port_probe_and_pallas_probe_agree():
+    """The port's probe (the CUDA kernel's plain version) gives the bits of
+    the reference's Pallas kernel and of its numpy filter."""
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 2 ** 63, 900, dtype=np.uint64)
+    bf = RefBloomFilter(keys, bits_per_key=10)
+    bits = torch.from_numpy(np.ascontiguousarray(bf.bits, np.uint32)
+                            .view(np.int32))
+    for nq in (1, 64, 512, 700):   # below / at / above the kernel block
+        q = np.concatenate([rng.integers(0, 2 ** 63, nq, dtype=np.uint64),
+                            np.array(EDGE, np.uint64)])
+        got = bloom.probe_plain(ops.keys_to_device(q, "cpu"), bits,
+                                bf.k).numpy()
+        np.testing.assert_array_equal(got, bloom_probe_filter(bf, q))
+        np.testing.assert_array_equal(got, bf.may_contain(q))
+    assert bloom.probe_plain(ops.keys_to_device(keys, "cpu"), bits,
+                             bf.k).all()   # no false negatives
+
+
+def test_multi_get_port_matches_pallas_route():
+    port, reference = make_pair("garnering", 0.8)
+    oracle, _, _ = run_workload([port, reference], seed=21, n_ops=600)
+    for db in (port, reference):
+        db.flush()
+    queries = list(np.random.default_rng(9).integers(0, 500, 200))
+    reference.config.use_pallas_bloom = True
+    ops.reset_launch_counts()
+    expected = reference.multi_get(queries)
+    assert port.multi_get(queries) == expected
+    assert expected == [oracle.get(int(k)) for k in queries]
+    assert ops.PLAIN_CALLS["bloom_probe"] > 0
+    assert_same_stats(port, reference)
+
+
+def test_pallas_bloom_differential_bit_for_bit_same_batches():
+    """The port's probe lane against the reference's Pallas route
+    (interpret mode): on the same key batches the same values AND the same
+    filter decisions — every probe/negative/false-positive/block counter in
+    the IOStats delta matches exactly."""
+    port, reference = make_pair("garnering", 0.8, bits_per_key=10)
+    oracle, _, _ = run_workload([port, reference], seed=33, n_ops=1200)
+    for db in (port, reference):
+        db.flush()
+    rng = np.random.default_rng(17)
+    batches = [list(rng.integers(0, 600, sz)) for sz in (1, 63, 64, 257, 500)]
+    reference.config.use_pallas_bloom = True
+    deltas, results = [], []
+    for db in (port, reference):
+        s0 = db.stats.snapshot()
+        results.append([db.multi_get(b) for b in batches])
+        deltas.append(dataclasses.asdict(db.stats.delta(s0)))
+    assert results[0] == results[1] == \
+        [[oracle.get(int(k)) for k in b] for b in batches]
+    assert deltas[0] == deltas[1]
+    assert deltas[0]["bloom_probes"] > 0
+
+
+# ------------------------------------------- tombstone-dense range scans (§3)
+def test_tombstone_dense_scan_refill_count_is_logarithmic():
+    """~120k contiguous tombstones are crossed in the reference's refill
+    count, which is O(log deleted) and at most 14, with the same result as
+    ``scan_scalar`` and the same accounting; a fresh scan after it starts
+    from the base ramp again."""
+    port, reference = make_pair("garnering", 0.8, memtable_bytes=1 << 16,
+                                base_level_bytes=1 << 18, bits_per_key=0)
+    n, live_tail, wave = 120_000, 1_000, 8_192
+    for db in (port, reference):
+        for i in range(0, n, wave):
+            ks = list(range(i, min(i + wave, n)))
+            db.put_batch(ks, [b"v%d" % k for k in ks])
+        for i in range(0, n - live_tail, wave):
+            db.delete_batch(list(range(i, min(i + wave, n - live_tail))))
+        db.flush()
+    counts = []
+    for db in (port, reference):
+        it = db.iterator()
+        refills = [0]
+        orig = it._refill
+
+        def counting(_orig=orig, _refills=refills):
+            _refills[0] += 1
+            return _orig()
+
+        it._refill = counting
+        got = it.scan(0, 100)
+        assert [k for k, _ in got] == list(range(n - live_tail,
+                                                 n - live_tail + 100))
+        counts.append(refills[0])
+        it2 = db.iterator()
+        assert it2.scan(n - live_tail, 5) == got[:5]
+    assert counts[0] == counts[1] <= 14
+    assert_same_stats(port, reference)
+    assert port.scan_scalar(0, 100) == reference.scan_scalar(0, 100)
+    assert_same_stats(port, reference)
+
+
+def test_deleted_range_scan_differential_mid_range_probes():
+    """Scans *starting inside* a tombstone-dense band (and exactly at its
+    edges) match the reference and the scalar oracle, also with fresh
+    writes in the band (memtable + runs merge)."""
+    port, reference = make_pair("garnering", 0.8, memtable_bytes=1 << 13,
+                                base_level_bytes=1 << 15)
+    n = 6_000
+    for db in (port, reference):
+        db.put_batch(list(range(n)), [b"x%d" % k for k in range(n)])
+        db.flush()
+        db.delete_batch(list(range(1_000, 5_000)))
+        db.flush()
+    for start in (0, 999, 1_000, 1_001, 2_500, 4_999, 5_000, 5_001, n - 10):
+        got = port.scan(start, 64)
+        assert got == reference.scan(start, 64) == port.scan_scalar(start, 64)
+        assert got == reference.scan_scalar(start, 64)
+        assert port.seek(start) == reference.seek(start)
+    for db in (port, reference):
+        db.put_batch(list(range(2_000, 2_050)),
+                     [b"new%d" % k for k in range(2_000, 2_050)])
+    for start in (1_500, 1_999, 2_000, 2_025, 2_050, 3_000):
+        got = port.scan(start, 64)
+        assert got == reference.scan(start, 64) == port.scan_scalar(start, 64)
+        assert got == reference.scan_scalar(start, 64)
+        assert port.seek(start) == reference.seek(start)
+    assert_same_stats(port, reference)
+
+
+# ------------------------------------------------- the modules underneath
+def test_memtable_scan_matches_reference():
+    from repro.core.memtable import Memtable as RefMemtable
+    from repro_torch.core.memtable import Memtable
+    port, reference = Memtable(1 << 20), RefMemtable(1 << 20)
+    rng = np.random.default_rng(4)
+    keys = [int(k) for k in rng.integers(0, 1000, 300)] + EDGE
+    for mt in (port, reference):
+        for i, k in enumerate(keys):
+            mt.put(k, i + 1, None if i % 7 == 0 else b"v%d" % i)
+    for start in [0, 1, 500, 999, 1000] + EDGE:
+        assert port.scan(start) == reference.scan(start)
+        assert port.scan(start, limit=1) == reference.scan(start)[:1]
+    # a write after a scan is seen by the next scan; the earlier view stays
+    before = port.scan(0)
+    for mt in (port, reference):
+        mt.put(5, 10_000, b"late")
+        mt.put_batch([6, 2**64 - 1], [b"a", None], 10_001)
+    assert port.scan(0) == reference.scan(0) != before
+    assert port.scan(0)[:len(before)] != before or len(before) == 0
+    for mt in (port, reference):
+        mt.clear()
+    assert port.scan(0) == reference.scan(0) == []
+
+
+def test_run_range_helpers_match_reference_at_u64_extremes():
+    port, reference = make_pair("garnering", 0.8, memtable_bytes=1 << 12,
+                                bits_per_key=10, l0_compaction_trigger=8)
+    rng = np.random.default_rng(8)
+    keys = [int(k) for k in rng.integers(0, 2**64 - 1, 500,
+                                         dtype=np.uint64)] + EDGE
+    for db in (port, reference):
+        db.put_batch(keys, [b"k%d" % (k % 977) * (k % 5) for k in keys])
+        db.delete_batch(keys[::9])
+        db.flush()
+    runs_p = list(port._runs_newest_first(port._levels))
+    runs_r = list(reference._runs_newest_first(reference._levels))
+    assert len(runs_p) == len(runs_r) > 1
+    for rp, rr in zip(runs_p, runs_r):
+        for key in EDGE + [1, 2**63 + 1, 2**64 - 2] + keys[:20]:
+            i = rp.seek_idx(key)
+            assert i == rr.seek_idx(key), key
+            for count in (0, 1, 7, len(rr)):
+                got, want = rp.slice_from(i, count), rr.slice_from(i, count)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype
+                    np.testing.assert_array_equal(g, w)
+                assert rp.blocks_spanned(i, i + count) == \
+                    rr.blocks_spanned(i, i + count)
+        rows = np.array([0, len(rr) - 1, len(rr) // 2, 0], dtype=np.int64)
+        want = [None if rr.vlens[r] == TOMBSTONE_LEN
+                else bytes(rr.vals[r, :rr.vlens[r]]) for r in rows]
+        assert rp.values_at(rows) == want
+        assert rp.values_at(np.zeros(0, np.int64)) == []
+    from repro_torch.core.run import seek_batch
+    for key in EDGE:
+        idx, at = seek_batch(runs_p, key)
+        assert idx == [r.seek_idx(key) for r in runs_r]
+        assert at == [int(r.keys[i]) if i < len(r) else None
+                      for r, i in zip(runs_r, idx)]
+
+
+def test_manifest_pins_match_reference():
+    from repro.core.manifest import Manifest as RefManifest
+    from repro.core.manifest import RunStorage as RefRunStorage
+    from repro_torch.core.manifest import Manifest, RunStorage
+    port, reference = Manifest(RunStorage()), RefManifest(RefRunStorage())
+    for m in (port, reference):
+        v0 = m.pin_current()
+        m.pin(v0)
+        assert m.pin_count(v0.version_id) == 2
+        assert not m.unpin(v0.version_id)
+        assert m.unpin(v0.version_id)
+        assert not m.unpin(v0.version_id)
+        assert m.total_pin_refs() == 0
+        m.pin(m.current())
+        assert m.total_pin_refs() == 1

@@ -118,6 +118,8 @@ CONFIGS = [
     pytest.param(dict(policy="garnering", c=1.0), id="garnering-c1.0"),
     pytest.param(dict(policy="leveling"), id="leveling"),
     pytest.param(dict(policy="tiering"), id="tiering"),
+    pytest.param(dict(policy="lazy-leveling"), id="lazy-leveling"),
+    pytest.param(dict(policy="qlsm-bush"), id="qlsm-bush"),
 ]
 BLOOMS = [
     pytest.param(dict(bits_per_key=0.0), id="nobloom"),
