@@ -7,10 +7,11 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py [--entries N] [--seed S] [--phases P,...]
                           [--src DIR]
 
-``--phases`` runs a subset of kernels,attention,equivalence,db_bench,serve
-(all by default; a subset ends in a {"partial": true} line instead of the
-kernels and ok lines); ``--src`` imports repro_torch from another checkout's
-src/ (for example a parent commit's, to time two versions in one call).
+``--phases`` runs a subset of
+kernels,attention,equivalence,db_bench,durability,serve (all by default; a
+subset ends in a {"partial": true} line instead of the kernels and ok
+lines); ``--src`` imports repro_torch from another checkout's src/ (for
+example a parent commit's, to time two versions in one call).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
@@ -40,6 +41,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 IOStats, multi_get answers, and scans, seeks and iterator
                 streams on the current state and under the snapshot; the
                 snapshot's release leaves no pin and frees device memory;
+                then the same on two stores with async compaction, a block
+                cache and a pinned L0 (``equivalence_async``), compared
+                after ``wait_for_quiesce``, cache hits and misses included;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
                 write buffer, 10 bits per key), every answer checked; the
@@ -48,12 +52,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 merge and probe launch; then, on the same store, seekrandom
                 (2,000 seeks) and YCSB workload E's scans (2,000 of 1..100
                 entries), every answer checked (the ``range`` line);
-  6. kernel launches on phase 5, each store kernel's must be > 0;
+  6. durability — the db_bench load again on LevelDB's background
+                compaction thread, 8 MiB LRU block cache and a 16 MiB pinned
+                L0 (L0 at its trigger): the tree equals phase 5's, the same
+                read waves through the cache, every answer checked; then
+                500,000 more writes with rotations queued, a flush, 10,000
+                unsynced writes, crash() and recover(): every fsynced write
+                reads back, the unsynced tail is lost, recovery's drain,
+                WAL replay and scrub timed; the store kernels must launch
+                from the worker thread, and no job may be retried, given up
+                or leave the store degraded;
+     kernel launches on phases 5 and 6, each store kernel's must be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
                 AutumnKV: three waves of four 512-token requests (cold,
                 warm, mixed), hits, dedup and tokens checked, every kernel
-                launched on the path; then the smoke config served on the
-                card and on the CPU at float32, tokens equal.
+                launched on the path, AutumnKV's store on the reference's
+                knobs (async, cache, pin) drained and not degraded; then the
+                smoke config served on the card and on the CPU at float32,
+                tokens equal.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -68,7 +84,9 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
+import zlib
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -803,7 +821,135 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
     return out
 
 
+def quiesce(store, timeout_s: float = 600.0) -> None:
+    """``wait_for_quiesce`` with a bound: a pipeline that never drains
+    fails the phase instead of the call's time limit."""
+    if not store.wait_for_quiesce(timeout_s):
+        raise AssertionError(f"background work still queued after "
+                             f"{timeout_s} s")
+
+
+def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
+    """Phase 4's second case: a CUDA store with async compaction, a block
+    cache and a pinned L0 against a CPU store of the same configuration,
+    after the same seeded operations and ``wait_for_quiesce``: bit-equal
+    trees, every answer, every IOStats field (cache hits and misses
+    included) and the same cache state.  The write-pressure triggers are
+    off in both, so that no counter depends on thread timing."""
+    cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
+                       bits_per_key=10, async_compaction=True,
+                       cache_bytes=1 << 20, pin_l0_bytes=256 << 10,
+                       cache_policy="lru", slowdown_trigger=0,
+                       stall_trigger=0)
+    stores = [rt.LSMStore(cfg, device="cuda"), rt.LSMStore(cfg, device="cpu")]
+    space = n_entries // 2
+    keys = rng.integers(0, space, n_entries, dtype=np.uint64)
+    keys[:5] = [0, 2**32 - 1, 2**63 - 1, 2**63, 2**64 - 1]
+    vals = [bytes([int(k) & 0xFF]) * int(n)
+            for k, n in zip(keys, rng.integers(0, 120, n_entries))]
+    dels = rng.choice(keys, n_entries // 20)
+    starts = np.concatenate([rng.choice(keys, 150), rng.choice(dels, 50),
+                             keys[:5], rng.integers(0, 2**64 - 1, 50,
+                                                    dtype=np.uint64)])
+    lengths = rng.integers(1, 101, starts.size)
+    ops.reset_launch_counts()
+    load_s = []
+    for s in stores:
+        t0 = time.perf_counter()
+        s.put_batch(keys[:space].tolist(), vals[:space])
+        s.delete_batch(dels.tolist())
+        s.flush()
+        for k in keys[space:space + 500].tolist():
+            s.put(k, b"single")
+        s.put_batch(keys[space:].tolist(), vals[space:])
+        s.delete_batch(dels[::2].tolist())
+        s.flush()
+        quiesce(s)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    load_launches = ops.launch_counts()
+    batches = [rng.integers(0, space * 2, m, dtype=np.uint64).tolist()
+               for m in (0, 1, 700, 65_536)] + [keys[:4096].tolist()]
+    answers = [[s.multi_get(b) for b in batches]
+               + [[s.get(int(k)) for k in keys[:64]]]
+               + range_answers(s, starts, lengths) for s in stores]
+    cols = [rt.columns_of(s) for s in stores]
+    same_tree = len(cols[0]["levels"]) == len(cols[1]["levels"]) and all(
+        len(la) == len(lb) and all(
+            ra.keys() == rb.keys() and all(
+                np.array_equal(ra[f], rb[f]) for f in ra)
+            for ra, rb in zip(la, lb))
+        for la, lb in zip(cols[0]["levels"], cols[1]["levels"]))
+    del cols
+    stats = [dataclasses.asdict(s.stats) for s in stores]
+    caches = [s.cache_summary() for s in stores]
+    health = [dict(degraded=s.degraded, bg_retries=st["bg_retries"],
+                   bg_gave_up=st["bg_gave_up"]) for s, st in
+              zip(stores, stats)]
+    for s in stores:
+        s.close()
+    out = dict(phase="equivalence_async", entries=n_entries,
+               config={k: v for k, v in dataclasses.asdict(cfg).items()
+                       if k in ("async_compaction", "cache_bytes",
+                                "pin_l0_bytes", "cache_policy",
+                                "slowdown_trigger", "stall_trigger")},
+               cuda_load_s=load_s[0], cpu_load_s=load_s[1],
+               bg_flushes=stats[0]["bg_flushes"],
+               bg_compactions=stats[0]["bg_compactions"],
+               cache=caches[0], health=health,
+               load_launches={k: load_launches[k] for k in STORE_KERNELS},
+               same_tree=same_tree, same_stats=stats[0] == stats[1],
+               same_answers=answers[0] == answers[1],
+               same_cache=caches[0] == caches[1])
+    emit(out)
+    if not (same_tree and out["same_stats"] and out["same_answers"]
+            and out["same_cache"]):
+        raise AssertionError("the async cached CUDA store differs from the "
+                             "CPU store")
+    if any(h != dict(degraded=False, bg_retries=0, bg_gave_up=0)
+           for h in health) or caches[0]["hits"] == 0:
+        raise AssertionError(f"async equivalence: {health}, {caches[0]}")
+    if not all(load_launches[k] for k in ("bloom_build", "merge_pair")):
+        raise AssertionError(f"no worker launches: {load_launches}")
+    return out
+
+
 # ------------------------------------------------------------ phase 5
+def fill_workload(seed: int, n_entries: int):
+    """db_bench fillrandom's keys (distinct u64, in write order) and the 1%
+    deleted after the load, from the seed alone, so that phases 5 and 6
+    write the same stream."""
+    rng = np.random.default_rng([seed, 5])
+    keys = rng.integers(0, 2**64 - 1, n_entries, dtype=np.uint64)
+    keys = keys[np.sort(np.unique(keys, return_index=True)[1])]  # distinct
+    return keys, rng.choice(keys, keys.size // 100, replace=False)
+
+
+def read_waves(seed: int, sorted_keys, live, deleted, n_waves: int = 32,
+               wave: int = 65_536):
+    """readrandom's waves, from the seed alone (phases 5 and 6 read the
+    same keys): half live keys, a quarter absent, a quarter deleted; wave
+    0 warms up.  Yields (keys, the answers they must get)."""
+    rng = np.random.default_rng([seed, 6])
+    for _ in range(n_waves + 1):
+        parts = [rng.choice(live, wave // 2),
+                 rng.integers(0, 2**64 - 1, wave // 4, dtype=np.uint64),
+                 rng.choice(deleted, wave // 4)]
+        at = np.minimum(np.searchsorted(sorted_keys, parts[1]),
+                        sorted_keys.size - 1)
+        if (sorted_keys[at] == parts[1]).any():
+            raise AssertionError("absent key drawn from the live set")
+        yield np.concatenate(parts), user_values(parts[0]) + [None] * (
+            wave // 2)
+
+
+def tree_digest(store) -> list:
+    """Per level, per run: its entry count and the CRC-32 of its block
+    checksums (one read-back a run)."""
+    return [[[len(r), zlib.crc32(r.block_crcs.cpu().numpy().tobytes())]
+             for r in lvl] for lvl in store._levels]
+
+
 def short_kernel_name(name: str) -> str:
     """``bloom_bucket_kernel`` from a profiler's demangled kernel name such
     as ``void (anonymous namespace)::bloom_bucket_kernel<unsigned short>(
@@ -1045,17 +1191,19 @@ def probe_size_report(ops) -> dict:
             for w, ns in sorted(by_words.items())}
 
 
-def dbbench_phase(torch, rt, ops, bloom, rng, n_entries: int) -> dict:
+DB_BENCH = dict(policy="garnering", T=2.0, c=0.8, memtable_bytes=4 << 20,
+                base_level_bytes=10 << 20, l0_compaction_trigger=4,
+                bits_per_key=10, block_size=4096)   # LevelDB's defaults
+
+
+def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
+                  n_entries: int) -> dict:
     """fillrandom then readrandom at LevelDB's db_bench defaults, then
     seekrandom and short scans on the same store (``range_phase``)."""
-    cfg = rt.LSMConfig(policy="garnering", T=2.0, c=0.8,
-                       memtable_bytes=4 << 20, base_level_bytes=10 << 20,
-                       l0_compaction_trigger=4, bits_per_key=10,
-                       block_size=4096)
+    cfg = rt.LSMConfig(**DB_BENCH)
     store = rt.LSMStore(cfg)   # cuda:0
     torch.cuda.reset_peak_memory_stats()
-    keys = rng.integers(0, 2**64 - 1, n_entries, dtype=np.uint64)
-    keys = keys[np.sort(np.unique(keys, return_index=True)[1])]  # distinct
+    keys, deleted = fill_workload(seed, n_entries)
     sorted_keys = np.sort(keys)
     # time inside compactions and inside flush's run build, device synced
     spent = {"compaction": 0.0, "flush_build": 0.0}
@@ -1091,30 +1239,23 @@ def dbbench_phase(torch, rt, ops, bloom, rng, n_entries: int) -> dict:
     load_profile["store_kernels_ms"] = {
         name: sum(per_kernel.get(f, 0.0) for f in fns)
         for name, fns in STORE_KERNEL_FUNCTIONS.items()}
-    deleted = rng.choice(keys, keys.size // 100, replace=False)
     store.delete_batch(deleted.tolist())
     torch.cuda.synchronize()
+    digest = tree_digest(store)
     launch_sizes = launch_size_report(ops)
     live = np.setdiff1d(keys, deleted)
-    wave, n_waves = 65_536, 32
+    wave = 65_536
     before = store.stats
     wave_s, checked = [], 0
-    for w in range(n_waves + 1):          # wave 0 warms up, untimed
-        parts = [rng.choice(live, wave // 2),
-                 rng.integers(0, 2**64 - 1, wave // 4, dtype=np.uint64),
-                 rng.choice(deleted, wave // 4)]
-        at = np.minimum(np.searchsorted(sorted_keys, parts[1]), keys.size - 1)
-        if (sorted_keys[at] == parts[1]).any():
-            raise AssertionError("absent key drawn from the live set")
-        q = np.concatenate(parts)
+    for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
+                                             deleted)):
         with recording_probes(torch, bloom) if w == 0 else nullcontext() \
-                as record:
+                as record:       # wave 0 warms up, untimed
             t = time.perf_counter()
             got = store.multi_get(q.tolist())
             dt = time.perf_counter() - t
         if w == 0:
             probe_record = record
-        want = user_values(parts[0]) + [None] * (wave // 2)
         if got != want:
             bad = sum(g != x for g, x in zip(got, want))
             raise AssertionError(f"wave {w}: {bad} wrong answers")
@@ -1162,9 +1303,305 @@ def dbbench_phase(torch, rt, ops, bloom, rng, n_entries: int) -> dict:
         run_bytes_on_device=run_bytes,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         read_stats={k: v for k, v in dataclasses.asdict(read_stats).items()
-                    if v})
+                    if v},
+        tree_digest=digest, memtable_entries=len(store.memtable))
     emit(out)
     emit(ranges)
+    return out
+
+
+# ------------------------------------------------------------ phase 6
+@contextmanager
+def launches_by_thread(bloom, merge):
+    """Counts every store-kernel launch inside the block by kernel and by
+    the name of the thread that made it."""
+    counts, lock = {}, threading.Lock()
+    wrapped = {"bloom_probe": (bloom, "probe_cuda"),
+               "bloom_build": (bloom, "build_cuda"),
+               "merge_pair": (merge, "merge_pair_cuda")}
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr) in wrapped.items()}
+
+    def counting(name, fn):
+        def call(*args):
+            out = fn(*args)
+            with lock:
+                key = f"{name}@{threading.current_thread().name}"
+                counts[key] = counts.get(key, 0) + 1
+            return out
+        return call
+
+    for name, (mod, attr) in wrapped.items():
+        setattr(mod, attr, counting(name, saved[name]))
+    try:
+        yield counts
+    finally:
+        for name, (mod, attr) in wrapped.items():
+            setattr(mod, attr, saved[name])
+
+
+def salted_values(keys: np.ndarray, salt: int, width: int = 100) -> list:
+    """A value that names its key (8 little-endian bytes) and a write
+    generation ``salt`` (the other bytes), unlike :func:`user_values`."""
+    mat = np.full((keys.size, width), salt, dtype=np.uint8)
+    mat[:, :8] = keys.astype("<u8").view(np.uint8).reshape(-1, 8)
+    flat = mat.tobytes()
+    return [flat[i:i + width] for i in range(0, len(flat), width)]
+
+
+def checked_reads(store, keys: np.ndarray, want: list,
+                  wave: int = 65_536) -> int:
+    """multi_get of ``keys`` in waves; the number of wrong answers."""
+    bad = 0
+    for i in range(0, keys.size, wave):
+        got = store.multi_get(keys[i:i + wave].tolist())
+        bad += sum(g != w for g, w in zip(got, want[i:i + wave]))
+    return bad
+
+
+def durability_phase(torch, rt, ops, bloom, merge, seed: int,
+                     n_entries: int, phase5=None) -> dict:
+    """Phase 5's load on LevelDB's background compaction (one worker), its
+    8 MiB LRU block cache and a pinned L0 of 16 MiB (four 4 MiB write
+    buffers, L0 at its compaction trigger: the paper's pinned first
+    level); the same read waves through the cache; then a crash while the
+    pipeline is busy, and recovery."""
+    cfg = rt.LSMConfig(**DB_BENCH, async_compaction=True,
+                       compaction_workers=1, cache_bytes=8 << 20,
+                       cache_policy="lru", pin_l0_bytes=16 << 20)
+    store = rt.LSMStore(cfg)   # cuda:0
+    torch.cuda.reset_peak_memory_stats()
+    keys, deleted = fill_workload(seed, n_entries)
+    sorted_keys = np.sort(keys)
+    live = np.setdiff1d(keys, deleted)
+    # worker time inside flushes and compactions (device synced there),
+    # and foreground time inside the cache's accounting
+    spent = {"bg_flush": 0.0, "compaction": 0.0, "cache_accounting": 0.0}
+
+    def timed(name, fn, sync=True):
+        def wrapper(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    store._bg_flush = timed("bg_flush", store._bg_flush)
+    store._apply = timed("compaction", store._apply)
+    store.block_cache.read_blocks = timed(
+        "cache_accounting", store.block_cache.read_blocks, sync=False)
+    ops.reset_launch_counts()
+    with launches_by_thread(bloom, merge) as by_thread:
+        chunk = min(500_000, -(-keys.size // 2))
+        starts = list(range(0, keys.size, chunk))
+        t0 = time.perf_counter()
+        for i in starts[:-1]:
+            kc = keys[i:i + chunk]
+            store.put_batch(kc.tolist(), user_values(kc))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        quiesce(store)
+        torch.cuda.synchronize()
+        drained_s = time.perf_counter() - t0
+        load_stats = store.stats
+        load_spent = dict(spent)
+        kc = keys[starts[-1]:]
+        load_profile = profile_window(torch, lambda: (store.put_batch(
+            kc.tolist(), user_values(kc)), quiesce(store)),
+            by_kernel=True)
+        store.delete_batch(deleted.tolist())
+        quiesce(store)
+        torch.cuda.synchronize()
+        digest = tree_digest(store)
+        memtable_entries = len(store.memtable)
+        load_launches = dict(by_thread)
+        # the same read waves as phase 5, through the cache
+        before = store.stats
+        cache_before = spent["cache_accounting"]
+        wave_s, checked = [], 0
+        for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
+                                                 deleted)):
+            t = time.perf_counter()
+            got = store.multi_get(q.tolist())
+            dt = time.perf_counter() - t
+            if got != want:
+                bad = sum(g != x for g, x in zip(got, want))
+                raise AssertionError(f"durability wave {w}: {bad} wrong")
+            if w:
+                wave_s.append(dt)
+                checked += q.size
+        reads = store.stats.delta(before)
+        cache_s = spent["cache_accounting"] - cache_before
+        cache = store.cache_summary()
+        # a crash while the pipeline is busy: 500,000 writes (half
+        # overwrites of live keys, half new keys) rotate into the queue
+        # (held there: the worker would keep up), flush() rotates and
+        # fsyncs the rest, then 10,000 writes that are never fsynced (they
+        # fit the empty write buffer); the worker resumes and the crash
+        # comes at once, with a flush in flight and the rest queued
+        crng = np.random.default_rng([seed, 8])
+        half = min(250_000, keys.size // 20)     # the sizes at 10M entries
+        n_unsynced = min(10_000, keys.size // 20)
+        over = crng.choice(live, half, replace=False)
+        new = crng.integers(0, 2**64 - 1, half + half // 10, dtype=np.uint64)
+        new = np.unique(new[~np.isin(new, keys)])[:half]
+        batch = np.concatenate([over, new])
+        crng.shuffle(batch)
+        store._scheduler.pause()
+        t = time.perf_counter()
+        for i in range(0, batch.size, 50_000):
+            kc = batch[i:i + 50_000]
+            store.put_batch(kc.tolist(), salted_values(kc, 1))
+        store.flush()
+        write_s = time.perf_counter() - t
+        queued_at_flush = [len(store._imm), store._scheduler.pending()]
+        untouched = np.setdiff1d(live, over)
+        unsynced = np.concatenate([
+            crng.choice(batch, n_unsynced // 2, replace=False),
+            crng.choice(untouched, n_unsynced // 2, replace=False)])
+        store.put_batch(unsynced.tolist(), salted_values(unsynced, 2))
+        unsynced_in_wal = [len(store.memtable), store.wal._synced_upto]
+        queued_at_crash = [len(store._imm), store._scheduler.pending()]
+        store._scheduler.resume()
+        split = {}
+
+        def split_timed(name, fn):
+            def wrapper(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                split[name] = (time.perf_counter() - t, out)
+                return out
+            return wrapper
+
+        store._consolidate_imm_wal = split_timed("wal_replay",
+                                                 store._consolidate_imm_wal)
+        store.scrub = split_timed("scrub", store.scrub)
+        t = time.perf_counter()
+        store.crash()
+        drain_s = time.perf_counter() - t
+        pins_after_crash = store.manifest.total_pin_refs()
+        t = time.perf_counter()
+        store.recover()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t
+        del store._consolidate_imm_wal, store.scrub
+        report = split["scrub"][1]
+        runs = [r for lvl in store._levels for r in lvl]
+        # every fsynced write reads back its last value, the unsynced tail
+        # its previous one
+        prev = {int(k): v for k, v in zip(batch, salted_values(batch, 1))}
+        want_unsynced = [prev[int(k)] for k in unsynced[:n_unsynced // 2]] \
+            + user_values(unsynced[n_unsynced // 2:])
+        rest = np.setdiff1d(untouched, unsynced)
+        rest = crng.choice(rest, min(1_500_000, rest.size // 2),
+                           replace=False)
+        dead = crng.choice(deleted, min(50_000, deleted.size), replace=False)
+        t = time.perf_counter()
+        wrong = dict(
+            fsynced_batch=checked_reads(store, batch,
+                                        salted_values(batch, 1)),
+            unsynced=checked_reads(store, unsynced, want_unsynced),
+            rest=checked_reads(store, rest, user_values(rest)),
+            deleted=checked_reads(store, dead, [None] * dead.size))
+        verify_s = time.perf_counter() - t
+        health = dict(degraded=store.degraded,
+                      bg_retries=store.stats.bg_retries,
+                      bg_gave_up=store.stats.bg_gave_up,
+                      pins=store.manifest.total_pin_refs())
+        store.put(2**64 - 1, b"after recovery")
+        store.flush()
+        quiesce(store)
+        after_ok = store.get(2**64 - 1) == b"after recovery"
+        store.close()
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    worker = "autumn-compaction-0"
+    out = dict(
+        phase="durability", entries=int(keys.size), deleted=int(deleted.size),
+        config={k: v for k, v in dataclasses.asdict(cfg).items()
+                if k in ("async_compaction", "compaction_workers",
+                         "cache_bytes", "cache_policy", "pin_l0_bytes",
+                         "slowdown_trigger", "stall_trigger",
+                         "memtable_bytes", "block_size")},
+        load_timed_entries=starts[-1], load_s=load_s,
+        load_entries_per_s=starts[-1] / load_s,
+        load_drained_s=drained_s,
+        load_drained_entries_per_s=starts[-1] / drained_s,
+        worker_flush_s=load_spent["bg_flush"],
+        worker_compaction_s=load_spent["compaction"],
+        stall_ns=load_stats.stall_ns, write_stalls=load_stats.write_stalls,
+        write_slowdowns=load_stats.write_slowdowns,
+        bg_flushes=load_stats.bg_flushes,
+        bg_compactions=load_stats.bg_compactions,
+        load_profile_last_chunk=dict(entries=int(kc.size), **load_profile),
+        load_launches_by_thread=load_launches,
+        tree_digest_equals_phase5=(None if phase5 is None
+                                   else digest == phase5["tree_digest"]),
+        memtable_entries=memtable_entries,
+        levels_in_use=len([lvl for lvl in store._levels if lvl]),
+        read_keys=checked, read_s=sum(wave_s),
+        multi_get_keys_per_s=checked / sum(wave_s),
+        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
+        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
+        cache_accounting_s=cache_s,
+        read_cache_hit_blocks=reads.cache_hit_blocks,
+        read_cache_miss_blocks=reads.cache_miss_blocks,
+        read_blocks_read=reads.blocks_read, cache=cache,
+        phase5_read_blocks_read=(None if phase5 is None else
+                                 phase5["read_stats"].get("blocks_read", 0)),
+        crash=dict(writes=int(batch.size), write_s=write_s,
+                   queued_at_flush=queued_at_flush,
+                   unsynced_writes=int(unsynced.size),
+                   memtable_and_synced_bytes_at_crash=unsynced_in_wal,
+                   queued_at_crash=queued_at_crash,
+                   drain_s=drain_s, pins_after_crash=pins_after_crash,
+                   recover_s=recover_s,
+                   wal_replay_s=split["wal_replay"][0],
+                   wal_replay_records=split["wal_replay"][1],
+                   scrub_s=split["scrub"][0],
+                   scrub_runs=len(report),
+                   scrub_gb=sum(r.data_bytes for r in runs) / 1e9,
+                   scrub_bad_blocks=sum(len(r["bad_blocks"])
+                                        for r in report),
+                   verified_keys=int(batch.size + unsynced.size + rest.size
+                                     + dead.size),
+                   verify_s=verify_s, wrong=wrong, health=health,
+                   write_after_recovery=after_ok),
+        launches={k: launches[k] for k in STORE_KERNELS},
+        launches_by_thread=dict(by_thread),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    bad = []
+    if phase5 is not None and not out["tree_digest_equals_phase5"]:
+        bad.append("tree differs from phase 5's")
+    if phase5 is not None and memtable_entries != phase5["memtable_entries"]:
+        bad.append("the write buffer differs from phase 5's")
+    if reads.blocks_read != reads.cache_miss_blocks:
+        bad.append("blocks_read != cache misses")
+    if phase5 is not None and reads.cache_hit_blocks \
+            + reads.cache_miss_blocks != out["phase5_read_blocks_read"]:
+        bad.append("hits + misses != phase 5's blocks read")
+    if any(wrong.values()) or not after_ok:
+        bad.append(f"wrong answers {wrong}")
+    if unsynced_in_wal != [int(unsynced.size), 0]:
+        bad.append(f"the unsynced tail was synced: {unsynced_in_wal}")
+    if health != dict(degraded=False, bg_retries=0, bg_gave_up=0, pins=0) \
+            or pins_after_crash:
+        bad.append(f"health {health}")
+    if out["crash"]["scrub_bad_blocks"]:
+        bad.append("bad blocks")
+    if not all(launches[k] for k in STORE_KERNELS):
+        bad.append(f"store kernels not launched: {launches}")
+    off_worker = {k: v for k, v in by_thread.items()
+                  if not k.startswith("bloom_probe")
+                  and not k.endswith("@" + worker)}
+    if off_worker:
+        bad.append(f"builds or merges off the worker thread: {off_worker}")
+    if bad:
+        raise AssertionError(f"durability phase failed: {bad}")
     return out
 
 
@@ -1192,9 +1629,25 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
     gen = 16
     waves = [("cold", [shared] * 4), ("warm", [shared] * 4),
              ("mixed", [other] * 2 + [shared] * 2)]
+    # host seconds the store's worker spends in flushes and compactions,
+    # which now overlap the requests (not device-synced: no perturbation)
+    db, busy = eng.kv.db, [0.0]
+
+    def worker_timed(fn):
+        def wrapper(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                busy[0] += time.perf_counter() - t
+        return wrapper
+
+    db._bg_flush = worker_timed(db._bg_flush)
+    db._bg_compact_one = worker_timed(db._bg_compact_one)
     ops.reset_launch_counts()
     outs, per_wave = [], []
     for name, prompts in waves:
+        backlog, busy0 = db._scheduler.pending(), busy[0]
         t = time.perf_counter()
         out = eng.serve_batch([Request(p, gen) for p in prompts])
         wall = time.perf_counter() - t
@@ -1208,11 +1661,14 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
             decoded_tokens_per_s=len(prompts) * gen
             / sum(tm["decode_step_s"]),
             hits=st["hits"], pages_written=st["pages_written"],
-            pages_deduped=st["pages_deduped"]))
+            pages_deduped=st["pages_deduped"],
+            store_jobs_queued_at_start=backlog,
+            store_worker_busy_ms=(busy[0] - busy0) * 1e3))
         emit({"phase": "serve_wave", **per_wave[-1]})
         outs.append(np.stack(out))
     launches = ops.launch_counts()
     plain = dict(ops.PLAIN_CALLS)
+    quiesce(eng.kv.db)
     st = eng.kv.stats()
     checks = {
         "hits_0_4_6": [w["hits"] for w in per_wave] == [0, 4, 6],
@@ -1225,15 +1681,23 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
                                for o in outs),
         "no_plain_calls": not any(plain.values()),
         "every_kernel_launched": all(launches[k] > 0 for k in KERNELS),
+        "store_async_cached": eng.kv.db._scheduler is not None
+        and st["block_cache"]["enabled"],
+        "store_not_degraded": not eng.kv.db.degraded
+        and st["io"]["bg_retries"] == st["io"]["bg_gave_up"] == 0,
     }
-    # the device's idle share over one more warm wave, under the profiler
+    # the device's idle share over one more warm wave, under the profiler,
+    # with the store's background work drained (quiesced above)
     prof = profile_window(torch, lambda: eng.serve_batch(
         [Request(shared, gen)] * 4))
+    prof["decode_step_ms_p50"] = float(np.percentile(
+        eng.last_timings["decode_step_s"], 50) * 1e3)
     out = dict(phase="serve", model=cfg.name, params=count_params(cfg),
                batch=4, s_max=1024, prompt_tokens=512, gen_len=gen,
                setup_s=setup_s, waves=per_wave, warm_wave_profile=prof,
                levels=st["levels"], store_io={k: v for k, v in
                                               st["io"].items() if v},
+               block_cache=st["block_cache"],
                launches=launches, plain_calls=plain,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                checks=checks)
@@ -1272,13 +1736,14 @@ def serve_equivalence(torch, dev, seed: int) -> dict:
     return out
 
 
-PHASES = ("kernels", "attention", "equivalence", "db_bench", "serve")
+PHASES = ("kernels", "attention", "equivalence", "db_bench", "durability",
+          "serve")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entries", type=int, default=10_000_000,
-                    help="phase-5 entry count (10M by default)")
+                    help="phase-5 and phase-6 entry count (10M by default)")
     ap.add_argument("--equiv-entries", type=int, default=200_000,
                     help="phase-4 entry count")
     ap.add_argument("--seed", type=int, default=0)
@@ -1341,17 +1806,27 @@ def main() -> int:
     if "equivalence" in phases:
         equivalence_phase(torch, rt, rng, args.equiv_entries)
         torch.cuda.empty_cache()
-    launches = {}
+        async_equivalence(torch, rt, ops, rng, args.equiv_entries)
+        torch.cuda.empty_cache()
+    launches, by_path, phase5 = {}, {}, None
     if "db_bench" in phases:
-        dbbench_phase(torch, rt, ops, bloom, rng, args.entries)
+        phase5 = dbbench_phase(torch, rt, ops, bloom, rng, args.seed,
+                               args.entries)
         launches = ops.launch_counts()
+        by_path["db_bench"] = {k: launches[k] for k in STORE_KERNELS}
         idle = [k for k in STORE_KERNELS if launches[k] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on phase 5: {idle}")
         torch.cuda.empty_cache()
+    if "durability" in phases:
+        by_path["durability"] = durability_phase(
+            torch, rt, ops, bloom, merge, args.seed, args.entries,
+            phase5)["launches"]
+        torch.cuda.empty_cache()
     if "serve" in phases:
         serve = serve_phase(torch, ops, dev, args.seed)
         serve_equivalence(torch, dev, args.seed)
+        by_path["serve"] = serve["launches"]
         # launches: the store kernels on phase 5, attention on the serve
         # phase
         launches.update({k: serve["launches"][k] for k in KERNELS
@@ -1367,7 +1842,9 @@ def main() -> int:
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],
                     bound_by=rows[name]["bound_by"],
-                    library_ms=rows[name]["library_ms"])
+                    library_ms=rows[name]["library_ms"],
+                    launches_by_path={p: c[name] for p, c in by_path.items()
+                                      if name in c})
                for name, (src, rep) in KERNELS.items()]
     emit({"kernels": kernels})
     emit({"phase": "done", "s": time.perf_counter() - t_start})

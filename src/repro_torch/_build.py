@@ -52,6 +52,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# held by every launch-count update and reset: the store's kernels also
+# launch from the compaction scheduler's worker threads
+COUNT_LOCK = threading.Lock()
 # the compiler's register/spill report per source, from the last build
 build_logs: Dict[str, str] = {}
 

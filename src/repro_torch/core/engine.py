@@ -1,16 +1,30 @@
 """The Autumn LSM storage engine, with its sorted runs on the device.
 
-Counterpart of ``repro.core.engine`` in synchronous mode: memtable + WAL on
-the host, immutable sorted runs whose columns live on the store's device, a
-pluggable merge policy (Garnering by default), the MVCC manifest with
-refcounted snapshots, Monkey/Autumn bloom allocation, and the L0 write
-stall.  Reads are point reads (``get``/``multi_get``) and range reads
-(``seek``, ``scan`` and ``iterator`` over the merging iterator, with
-``scan_scalar`` as their oracle), each on the current state or a
-snapshot.  Every read and
-write is accounted in the block-I/O cost model (``types.IOStats``) exactly
-as the reference accounts it, so the two can be held against each other
-counter by counter.
+Counterpart of ``repro.core.engine``: memtable + WAL on the host, immutable
+sorted runs whose columns live on the store's device, a pluggable merge
+policy (Garnering by default), the MVCC manifest with refcounted
+snapshots, Monkey/Autumn bloom allocation and the L0 write stall.  Reads
+are point reads (``get``/``multi_get``) and range reads (``seek``, ``scan``
+and ``iterator`` over the merging iterator, with ``scan_scalar`` as their
+oracle), each on the current state or a snapshot.  Every read and write is
+accounted in the block-I/O cost model (``types.IOStats``) exactly as the
+reference accounts it, so the two can be held against each other counter
+by counter.
+
+Durability is the reference's in-memory model: the runs on the device play
+the part of its ``RunStorage``, and ``crash()`` drops volatile state only
+(the WAL past its fsync watermark, manifest edits past theirs, memtables,
+cache contents); ``recover()`` replays the log and scrubs every run.
+
+With ``async_compaction`` the flush/compaction pipeline moves onto a
+background ``CompactionScheduler``: full memtables rotate into a readable
+immutable queue, workers install versions in the synchronous order (so the
+synchronous store stays the bit-for-bit oracle after ``wait_for_quiesce``),
+and write pressure is governed by ``slowdown_trigger``/``stall_trigger``.
+One thread writes; readers are lock-free on copy-on-write level and queue
+references.  ``cache_bytes``/``pin_l0_bytes`` attach the reference's block
+cache and pinned L0 (``core.cache``), an accounting model: the runs stay on
+the device whatever it decides.
 
 The store's device decides how the three accelerator lanes run: on CUDA
 the bloom probe, the bloom build and the compaction pair merge launch the
@@ -22,6 +36,8 @@ absent; only an explicit ``device="cpu"`` runs on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,13 +45,20 @@ import torch
 
 from ..kernels import ops
 from .bloom import allocate_fprs, bits_for_fpr
+from .cache import BlockCache, PinnedLevelManager
+from .faults import CorruptionError, StoreDegradedError
 from .iterator import MergingIterator
 from .manifest import Manifest, RunStorage, Version
-from .memtable import Memtable, WriteAheadLog
+from .memtable import ImmutableMemtable, Memtable, WriteAheadLog
 from .policy import CompactionTask, MergePolicy, make_policy
 from .run import SortedRun, merge_runs, seek_batch
+from .scheduler import CompactJob, CompactionScheduler, FlushJob
 from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, TOMBSTONE_LEN, IOStats,
                     StatsHub)
+
+# Soft write-pressure delay: sleep(0) yields the GIL and the CPU slice to
+# the compaction workers, the point of the soft trigger (the reference's).
+_SLOWDOWN_SLEEP_S = 0.0
 
 
 @dataclasses.dataclass
@@ -44,10 +67,10 @@ class LSMConfig:
 
     The reference's ``use_pallas_bloom``/``use_pallas_merge`` switches are
     gone: the store's device decides which lane runs (kernels on CUDA,
-    their plain versions on the CPU).  The fields from ``async_compaction``
-    down keep the reference's names and defaults, but only their defaults
-    are supported: ``LSMStore`` raises ``NotImplementedError`` for any
-    other value rather than ignore it.
+    their plain versions on the CPU).  The fields from ``shards`` down keep
+    the reference's names and defaults, but only their defaults are
+    supported: ``LSMStore`` raises ``NotImplementedError`` for any other
+    value rather than ignore it.
     """
 
     policy: str = "garnering"
@@ -62,14 +85,24 @@ class LSMConfig:
     wal_fsync_every_write: bool = False # False => fsync at flush (db default)
     block_size: int = BLOCK_SIZE
     key_bytes: int = KEY_BYTES
+    async_compaction: bool = False      # flush + compaction on background
+                                        # workers; False is the synchronous
+                                        # store, the differential oracle
+    cache_bytes: int = 0                # block cache budget; 0 => no cache
+    pin_l0_bytes: int = 0               # resident-L0 budget (the paper's
+                                        # "bounded space of DRAM"); 0 => none
+    cache_policy: str = "clock"         # "clock" (second chance) | "lru"
+    compaction_workers: int = 1         # background worker threads
+    slowdown_trigger: int = 64          # queued L0 runs + immutable memtables
+                                        # beyond which each rotation yields
+                                        # to the workers; <=0 disables
+    stall_trigger: int = 256            # ... beyond which rotation blocks
+                                        # until the backlog drains below it
+                                        # or the workers go idle; <=0 disables
+    bg_max_retries: int = 2             # background job retries (bounded
+                                        # backoff) before the store degrades
+                                        # read-only
     # not supported by this port yet: each must stay at its default
-    async_compaction: bool = False
-    cache_bytes: int = 0
-    pin_l0_bytes: int = 0
-    cache_policy: str = "clock"
-    compaction_workers: int = 1
-    slowdown_trigger: int = 64
-    stall_trigger: int = 256
     shards: int = 1
     use_range_views: bool = False
     shard_splitters: Optional[Tuple[int, ...]] = None
@@ -78,26 +111,26 @@ class LSMConfig:
     rebalance_ratio: float = 2.0
     paranoid_checks: bool = False
     faults: Optional[object] = None
-    bg_max_retries: int = 2
     tuner: Optional[object] = None
 
 
-_UNSUPPORTED = ("async_compaction", "cache_bytes", "pin_l0_bytes",
-                "cache_policy", "compaction_workers", "slowdown_trigger",
-                "stall_trigger", "shards", "use_range_views",
-                "shard_splitters", "telemetry", "rebalance_interval_ops",
-                "rebalance_ratio", "paranoid_checks", "faults",
-                "bg_max_retries", "tuner")
+_UNSUPPORTED = ("shards", "use_range_views", "shard_splitters", "telemetry",
+                "rebalance_interval_ops", "rebalance_ratio",
+                "paranoid_checks", "faults", "tuner")
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda:0``, which must exist; the CPU only on request."""
+    """``None`` means ``cuda:0``, which must exist; the CPU only on request.
+    A CUDA device without an index gets the current one (the scheduler's
+    worker threads set it as theirs)."""
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -124,15 +157,93 @@ class LSMStore:
         self._levels: List[List[SortedRun]] = [[]]
         self._max_level = 1
         self._seq = 0
+        # Set to the root failure when the background pipeline exhausts its
+        # retry budget: writes then raise StoreDegradedError while reads
+        # keep serving the committed tree.
+        self._degraded: Optional[BaseException] = None
+        # the pipeline failure was raised to a caller once already, so a
+        # later close() cleans up without raising it again
+        self._bg_failure_surfaced = False
+        # Rotated memtables queue here (oldest first) and stay readable
+        # until their background flush installs; the maintenance lock
+        # serializes the gc + retain + repin triplet between worker
+        # installs and snapshot releases.
+        self._imm: List[ImmutableMemtable] = []
+        self._maint_lock = threading.Lock()
+        self._scheduler: Optional[CompactionScheduler] = None
+        if self.config.async_compaction:
+            self._scheduler = CompactionScheduler(
+                self, self.config.compaction_workers)
+        self.block_cache: Optional[BlockCache] = None
+        self.pinned_l0: Optional[PinnedLevelManager] = None
+        if self.config.cache_bytes > 0 or self.config.pin_l0_bytes > 0:
+            self.configure_cache(self.config.cache_bytes,
+                                 self.config.pin_l0_bytes,
+                                 self.config.cache_policy)
 
     @property
     def stats(self) -> IOStats:
         """Merged view of every thread's counter shard (a fresh IOStats)."""
         return self._stats.merged()
 
-    def close(self) -> None:
-        """No-op: the synchronous store holds no workers.  Device memory is
-        released with the store."""
+    # ------------------------------------------------------ degraded mode
+    @property
+    def degraded(self) -> bool:
+        """True when persistent background failure turned the store
+        read-only; cleared by ``crash()`` + ``recover()``."""
+        return self._degraded is not None
+
+    def _enter_degraded(self, exc: BaseException) -> None:
+        """Turn read-only (idempotent; the scheduler worker calls it when a
+        job exhausts its retry budget)."""
+        if self._degraded is None:
+            self._degraded = exc
+
+    def _raise_degraded(self) -> None:
+        raise StoreDegradedError(
+            "store is read-only after persistent background failure; "
+            "reads keep serving — crash()+recover() to restore writes"
+        ) from self._degraded
+
+    # ------------------------------------------------------------- cache
+    def configure_cache(self, cache_bytes: int, pin_l0_bytes: int = 0,
+                        policy: Optional[str] = None) -> None:
+        """(Re)build the block cache on a live store: contents are dropped
+        and the current L0 is repinned (charged) within the new budget.
+        Zeros detach the cache and revert every read to raw block
+        accounting; ``policy=None`` keeps the configured ``cache_policy``."""
+        self.config.cache_bytes = int(cache_bytes)
+        self.config.pin_l0_bytes = int(pin_l0_bytes)
+        if policy is not None:
+            self.config.cache_policy = policy
+        if cache_bytes <= 0 and pin_l0_bytes <= 0:
+            self.block_cache = None
+            self.pinned_l0 = None
+            return
+        self.attach_cache(BlockCache(cache_bytes, self.config.cache_policy),
+                          pin_l0_bytes)
+
+    def attach_cache(self, cache, pin_l0_bytes: int = 0) -> None:
+        """Attach an externally owned cache (anything speaking the
+        ``BlockCache`` read/retain/pin protocol) and pin the current L0
+        within ``pin_l0_bytes``, charged as real reads."""
+        self.block_cache = cache
+        self.pinned_l0 = PinnedLevelManager(cache, pin_l0_bytes)
+        with self._maint_lock:
+            self.pinned_l0.repin(self._levels[0], stats=self._stats.local())
+
+    def cache_summary(self) -> dict:
+        """Memory-subsystem health: hit rate, charged bytes, residency."""
+        if self.block_cache is None:
+            return dict(enabled=False, hit_rate=0.0, hits=0, misses=0,
+                        evictions=0, charged_bytes=0, pinned_bytes=0,
+                        pinned_l0_runs=0)
+        c = self.block_cache
+        return dict(enabled=True, hit_rate=c.hit_rate(), hits=c.hits,
+                    misses=c.misses, evictions=c.evictions,
+                    charged_bytes=c.charged_bytes,
+                    pinned_bytes=c.pinned_bytes,
+                    pinned_l0_runs=len(self.pinned_l0.pinned_run_ids))
 
     # ------------------------------------------------------------- writes
     def put(self, key: int, value: bytes):
@@ -142,6 +253,8 @@ class LSMStore:
         self._write(key, None)
 
     def _write(self, key: int, value: Optional[bytes]):
+        if self._degraded is not None:
+            self._raise_degraded()
         st = self._stats.local()
         self._seq += 1
         self.wal.append(1 if value is None else 0, key, self._seq,
@@ -150,7 +263,7 @@ class LSMStore:
             self.wal.fsync(st)
         self.memtable.put(int(key), self._seq, value)
         if self.memtable.is_full():
-            self.flush()
+            self._on_memtable_full()
 
     # ------------------------------------------------------- batched writes
     def put_batch(self, keys, values) -> None:
@@ -188,6 +301,8 @@ class LSMStore:
         n = len(pairs)
         if n == 0:
             return
+        if self._degraded is not None:
+            self._raise_degraded()
         st = self._stats.local()
         keys_l, vals_l = zip(*pairs)
         keys_l = list(map(int, keys_l))
@@ -215,16 +330,32 @@ class LSMStore:
             self.memtable.put_batch(keys_l[i:j], chunk_vals, first_seq,
                                     added=int(cum[j - 1] - base))
             if self.memtable.is_full():
-                self.flush()
+                self._on_memtable_full()
             i = j
 
     def fsync_wal(self) -> None:
         """Explicit durability barrier on the active WAL."""
         self.wal.fsync(self._stats.local())
 
+    def _on_memtable_full(self):
+        """Full write buffer: flush inline (sync) or rotate and enqueue
+        (async), at exactly the point the synchronous store flushes — the
+        root of the async-vs-sync differential guarantee."""
+        if self._scheduler is None:
+            self.flush()
+        else:
+            self._rotate()
+
     def flush(self):
         """Freeze the memtable into an L0 run on the device (no merge —
-        §3.2 L0 tiering), then compact until the policy is satisfied."""
+        §3.2 L0 tiering), then compact until the policy is satisfied.
+
+        Async mode: the call only rotates the memtable into the immutable
+        queue; the run build, install and compactions run on the
+        scheduler's workers (``wait_for_quiesce`` waits for them)."""
+        if self._scheduler is not None:
+            self._rotate()
+            return
         if len(self.memtable) == 0:
             return
         st = self._stats.local()
@@ -244,31 +375,213 @@ class LSMStore:
         self.wal.truncate()
         self._compact_until_quiet()
 
+    # ------------------------------------------------- async rotation path
+    def _rotate(self):
+        """Foreground half of a pipelined flush: write-pressure control,
+        the WAL fsync (the rotated segment's durability point), the freeze
+        of the memtable + WAL pair into the readable immutable queue, and
+        the submission of its :class:`FlushJob`."""
+        if len(self.memtable) == 0:
+            return
+        self._throttle()
+        self.wal.fsync(self._stats.local())
+        imm = ImmutableMemtable(self.memtable, self.wal)
+        with self._scheduler.lock:
+            self._imm = self._imm + [imm]   # copy-on-write: readers hold refs
+        self.memtable = Memtable(self.config.memtable_bytes,
+                                 self.config.key_bytes,
+                                 self.config.block_size)
+        self.wal = WriteAheadLog()
+        try:
+            self._scheduler.submit(FlushJob(imm))
+        except RuntimeError as exc:
+            # Raced the worker poisoning the pipeline: the write is already
+            # durable in the rotated segment and readable from the queue, so
+            # it is accepted; the next write meets the degraded flag.  A
+            # cause-less RuntimeError (scheduler shut down) propagates.
+            if exc.__cause__ is None:
+                raise
+            self._enter_degraded(exc.__cause__)
+
+    def _throttle(self):
+        """LevelDB-style write-pressure control at rotation points.
+        Pressure = queued L0 runs + immutable memtables.  At
+        ``slowdown_trigger`` a rotation yields its CPU slice to the
+        workers; at ``stall_trigger`` it blocks until the backlog drains
+        below the trigger or the scheduler goes idle.  Both charge
+        ``IOStats.stall_ns``."""
+        cfg = self.config
+        st = self._stats.local()
+        depth = len(self._imm) + len(self._levels[0])
+        t0 = time.perf_counter_ns()
+        if cfg.stall_trigger > 0 and depth >= cfg.stall_trigger:
+            st.write_stalls += 1
+            sched = self._scheduler
+            sched.wait_until(
+                lambda: sched.idle()
+                or (len(self._imm) + len(self._levels[0]))
+                < cfg.stall_trigger)
+        elif cfg.slowdown_trigger > 0 and depth >= cfg.slowdown_trigger:
+            st.write_slowdowns += 1
+            time.sleep(_SLOWDOWN_SLEEP_S)
+        else:
+            return
+        st.stall_ns += time.perf_counter_ns() - t0
+
+    def wait_for_quiesce(self, timeout: Optional[float] = None) -> bool:
+        """Block until all background flush/compaction work has drained.
+        After a True return the tree equals the synchronous store's for the
+        same op sequence; the active memtable is not flushed (``flush()``
+        rotates it first).  Sync mode returns True at once; a dead pipeline
+        raises."""
+        if self._scheduler is None:
+            return True
+        try:
+            return self._scheduler.wait_for_quiesce(timeout)
+        except RuntimeError:
+            self._bg_failure_surfaced = True
+            raise
+
+    def close(self) -> None:
+        """Drain and stop the background workers (async mode); the store
+        stays usable on the synchronous path, which is state-equivalent.
+        On a failed pipeline the first surfacing raises the failure, after
+        the full cleanup (worker shutdown, stranded rotations folded back
+        into the active WAL and memtable); later calls are no-ops."""
+        sched = self._scheduler
+        if sched is None:
+            return
+        surfaced = self._bg_failure_surfaced
+        try:
+            sched.wait_for_quiesce()   # raises on a dead pipeline
+        except BaseException:
+            self._bg_failure_surfaced = True
+            if not surfaced:
+                raise                  # finally still completes the cleanup
+        finally:
+            sched.shutdown()
+            self._scheduler = None
+            if self._imm:
+                self._consolidate_imm_wal()
+            self._degraded = None
+
+    def _consolidate_imm_wal(self) -> int:
+        """Fold the immutable queue's WAL segments into one active log and
+        rebuild the memtable from it.
+
+        Segment concatenation (oldest first, active last) is record
+        concatenation, so replay order equals write order; the rotated
+        segments were fsynced at rotation, so the synced watermark is their
+        total length plus the active WAL's own.  Every record is replayed,
+        the unsynced tail included (it is live process state).  Returns the
+        number of records replayed."""
+        wal = WriteAheadLog()
+        buf = bytearray()
+        synced = 0
+        for imm in self._imm:
+            buf += imm.wal._buf
+            synced += len(imm.wal._buf)       # fully fsynced at rotation
+        synced += self.wal._synced_upto
+        buf += self.wal._buf
+        wal._buf = buf
+        wal._synced_upto = synced
+        self.wal = wal
+        self._imm = []
+        self.memtable = Memtable(self.config.memtable_bytes,
+                                 self.config.key_bytes,
+                                 self.config.block_size)
+        n = 0
+        for op, key, seq, value in self.wal.records():
+            n += 1
+            self._seq = max(self._seq, seq)
+            self.memtable.put(key, seq, None if op == 1 else value)
+        return n
+
+    # --------------------------------------------------- background applies
+    def _bg_flush(self, imm: ImmutableMemtable) -> Optional[CompactJob]:
+        """Worker half of a pipelined flush: the synchronous ``flush`` step
+        for step (rate limiter, run build, install), then the compaction
+        continuation, which the scheduler front-queues.  The immutable
+        memtable leaves the queue only after the install: a reader may see
+        its entries twice, never zero times."""
+        sched = self._scheduler
+        st = self._stats.local()
+        if len(self._levels[0]) >= self.config.l0_stop_writes_trigger:
+            st.write_stalls += 1
+            self._compact_until_quiet()
+        if sched.aborting:
+            return None     # crash in progress: imm stays queued for replay
+        run = imm.memtable.to_run(self._bits_for_level(0), st, self.device)
+        if len(run):
+            levels = [list(lvl) for lvl in self._levels]
+            levels[0].append(run)  # newest last
+            self._levels = levels
+            self._commit()
+        with sched.lock:
+            self._imm = [m for m in self._imm if m is not imm]
+            sched.lock.notify_all()     # wake write-pressure waiters
+        st.bg_flushes += 1
+        return CompactJob()
+
+    def _bg_compact_one(self) -> Optional[CompactionTask]:
+        """Plan and apply one compaction task (worker thread), with the
+        input version pinned for the merge so a concurrent snapshot release
+        cannot free its runs; the pin is released (and GC + cache retention
+        re-run) however the apply ends."""
+        if self._scheduler.aborting:
+            return None
+        pinned = self.manifest.pin_current()
+        try:
+            task = self._plan_one()
+            if task is None or not self._apply(task):
+                return None
+            self._stats.local().bg_compactions += 1
+            return task
+        finally:
+            if self.manifest.unpin(pinned.version_id):
+                with self._maint_lock:
+                    self.manifest.gc()
+                    if self.block_cache is not None:
+                        self.block_cache.retain(self.storage.ids())
+
     # -------------------------------------------------------- compactions
     def _plan_one(self) -> Optional[CompactionTask]:
-        """Next compaction task from host metadata only (no device read)."""
+        """Next compaction task from host metadata only (no device read).
+        The task captures its source level's run ids, so an apply against
+        a changed tree is refused rather than merging the wrong runs."""
         sizes = [[r.data_bytes for r in lvl] for lvl in self._levels]
         new_L, task, delayed = self.policy.plan(
             sizes, self._max_level, self.config.base_level_bytes)
         if delayed:
             self._stats.local().delayed_last_level_compactions += delayed
         self._max_level = max(self._max_level, new_L)
-        return task
+        if task is None:
+            return None
+        srcs = (self._levels[task.src_level]
+                if task.src_level < len(self._levels) else [])
+        return dataclasses.replace(
+            task, src_run_ids=tuple(r.run_id for r in srcs))
 
     def _compact_until_quiet(self):
         while True:
+            if self._scheduler is not None and self._scheduler.aborting:
+                return      # crash in progress: bail at the task boundary
             task = self._plan_one()
             if task is None:
                 return
             self._apply(task)
 
-    def _apply(self, task: CompactionTask) -> None:
+    def _apply(self, task: CompactionTask) -> bool:
         """Merge the task's inputs on the device and install the result as
-        a new version."""
+        a new version, published with one reference assignment (readers
+        see the old version or the new one).  Returns False, changing
+        nothing, if the task's captured inputs no longer match the tree."""
         levels = [list(lvl) for lvl in self._levels]
         while len(levels) <= task.dst_level:
             levels.append([])
         srcs = levels[task.src_level]
+        if not task.matches(srcs):
+            return False
         dsts = levels[task.dst_level] if task.include_dst else []
         drop_tombs = task.include_dst \
             and task.dst_level >= self._deepest_nonempty()
@@ -284,6 +597,7 @@ class LSMStore:
         self._levels = levels
         self._max_level = max(self._max_level, task.dst_level)
         self._commit()
+        return True
 
     def _deepest_nonempty(self) -> int:
         deepest = 1
@@ -297,7 +611,14 @@ class LSMStore:
         st = self._stats.local()
         self.manifest.commit(self._levels, self._max_level, self._seq, st)
         self.manifest.fsync(st)
-        self.manifest.gc()
+        with self._maint_lock:
+            # gc + retain + repin must not interleave with a snapshot
+            # release or another install: a retain from a stale id set could
+            # drop blocks the newer version just pinned
+            self.manifest.gc()
+            if self.block_cache is not None:
+                self.block_cache.retain(self.storage.ids())
+                self.pinned_l0.repin(self._levels[0])
 
     # -------------------------------------------------------------- bloom
     def _bits_for_level(self, level: int) -> float:
@@ -325,9 +646,16 @@ class LSMStore:
         return snapshot.runs(self.storage)
 
     def _mem_sources(self) -> List[Memtable]:
-        """Memtables in resolution order: in the synchronous store, the
-        active memtable alone."""
-        return [self.memtable]
+        """Memtables in resolution order: active, then immutables newest
+        first.  The active memtable is captured *before* the queue:
+        rotation publishes in the opposite order (queue append, then the
+        active swap), so a racing reader may see the rotated memtable
+        twice, never zero times."""
+        active = self.memtable
+        imm = self._imm
+        if not imm:
+            return [active]
+        return [active] + [m.memtable for m in reversed(imm)]
 
     def _runs_newest_first(self, levels: List[List[SortedRun]]):
         for r in reversed(levels[0]):
@@ -361,27 +689,33 @@ class LSMStore:
         if n == 0:
             return results
         pending = np.arange(n, dtype=np.int64)
-        mt = self.memtable
-        if snapshot is None and len(mt):
-            keep = []
-            for j, k in enumerate(keys_arr.tolist()):
-                hit = mt.get(k)
-                if hit is not None:
-                    results[j] = hit[1]   # value, or None: tombstone
-                else:
-                    keep.append(j)
-            pending = np.asarray(keep, dtype=np.int64)
+        if snapshot is None:
+            # memtables before levels (see _mem_sources): a racing install
+            # gives a benign duplicate, never a lost read
+            for mt in self._mem_sources():
+                if len(mt) == 0 or pending.size == 0:
+                    continue
+                keep = []
+                get = mt.get
+                for j, k in zip(pending.tolist(), keys_arr[pending].tolist()):
+                    hit = get(k)
+                    if hit is not None:
+                        results[j] = hit[1]   # value, or None: tombstone
+                    else:
+                        keep.append(j)
+                pending = np.asarray(keep, dtype=np.int64)
         if pending.size == 0:
             return results
         q = ops.keys_to_device(keys_arr[pending], self.device)
         use_bloom = self.config.bits_per_key > 0
+        cache = self.block_cache
         for run in self._runs_newest_first(self._read_state(snapshot)):
             if pending.size == 0:
                 break
             if len(run) == 0:
                 continue
             st.runs_touched_point += int(pending.size)
-            found, values, q = run.point_get_batch(q, st, use_bloom)
+            found, values, q = run.point_get_batch(q, st, use_bloom, cache)
             if found.any():
                 for p in np.nonzero(found)[0].tolist():
                     results[int(pending[p])] = values[p]
@@ -406,11 +740,13 @@ class LSMStore:
         mems = self._mem_sources() if snapshot is None else []
         runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
                 if len(r)]
-        for run, i, k in zip(runs, *seek_batch(runs, int(key))):
+        cache = self.block_cache
+        for run, i, k, b in zip(runs, *seek_batch(
+                runs, int(key), with_blocks=True)):
             st.runs_touched_range += 1
             st.seeks += 1
             if i < len(run):
-                st.blocks_read += 1
+                run._charge_block(b, st, cache)
                 if best is None or k < best:
                     best = k
         for mt in mems:
@@ -430,7 +766,8 @@ class LSMStore:
         runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
                 if len(r)]
         return MergingIterator(runs, memtables=mems,
-                               stats=self._stats.local(), chunk=chunk)
+                               stats=self._stats.local(), chunk=chunk,
+                               cache=self.block_cache)
 
     def scan(self, start_key: int, count: int,
              snapshot: Optional[Version] = None) -> List[Tuple[int, bytes]]:
@@ -528,9 +865,68 @@ class LSMStore:
 
     def release_snapshot(self, snapshot: Version) -> None:
         """Drop one reader reference; at the last one, the runs that only
-        the snapshot held are freed."""
-        if self.manifest.unpin(snapshot.version_id):
+        the snapshot held are freed (and their cached blocks dropped)."""
+        if not self.manifest.unpin(snapshot.version_id):
+            return  # other readers still hold the version
+        with self._maint_lock:
             self.manifest.gc()
+            if self.block_cache is not None:
+                self.block_cache.retain(self.storage.ids())
+
+    # ------------------------------------------------------------ recovery
+    def crash(self):
+        """Simulate a process crash: volatile state is lost.
+
+        Async mode: the scheduler first aborts the in-flight job at its
+        next safe point and drops the queued work, so no half-applied
+        compaction, input pin or orphaned cache entry survives.  The
+        immutable queue's WAL segments were fsynced at rotation and stay
+        for ``recover`` to replay; the runs on the device are the durable
+        medium and stay too."""
+        if self._scheduler is not None:
+            self._scheduler.abort_and_drain()
+        self.wal.crash()
+        for imm in self._imm:
+            imm.wal.crash()   # fully synced at rotation: keeps every byte
+        self.manifest.crash()
+        self.memtable.clear()
+
+    def recover(self):
+        """Rebuild volatile state from the durable manifest and WAL(s).
+
+        The newest checksum-valid version is restored; the cache is cleared
+        and L0 repinned (charged); the log is repaired to its last valid
+        frame; the rotated-but-unflushed segments are consolidated (oldest
+        first) ahead of the active WAL and replayed, so a second crash
+        before the next rotation still recovers everything; and every run
+        is scrubbed on the device — a bad block raises
+        :class:`CorruptionError`.  Degraded mode ends: the failed
+        pipeline's state was volatile."""
+        v, _ = self.manifest.recover_current()
+        self._levels = v.runs(self.storage)
+        self._max_level = v.max_level
+        self._seq = v.last_seq
+        self._degraded = None
+        self._bg_failure_surfaced = False
+        if self.block_cache is not None:
+            self.block_cache.clear()
+            with self._maint_lock:
+                self.pinned_l0.repin(self._levels[0],
+                                     stats=self._stats.local())
+        self.wal.repair()
+        self._consolidate_imm_wal()
+        for r in self.scrub():
+            if r["bad_blocks"]:
+                raise CorruptionError(r["run_id"], r["bad_blocks"][0],
+                                      where="recovery scrub")
+
+    def scrub(self) -> List[dict]:
+        """Verify every run's block checksums on the device; one report
+        dict per run (``run_id``, ``level``, ``entries``, ``blocks``,
+        ``bad_blocks``: empty == clean).  Does not raise."""
+        return [{"run_id": run.run_id, "level": li, "entries": len(run),
+                 "blocks": run.n_blocks, "bad_blocks": run.verify()}
+                for li, lvl in enumerate(self._levels) for run in lvl]
 
     # -------------------------------------------------------- inspection
     def level_summary(self) -> List[dict]:
@@ -551,5 +947,51 @@ class LSMStore:
 
     @property
     def total_entries(self) -> int:
-        return sum(len(r) for lvl in self._levels for r in lvl) \
-            + len(self.memtable)
+        mems = self._mem_sources()      # memtables before levels, as above
+        levels = self._levels
+        return sum(len(r) for lvl in levels for r in lvl) \
+            + sum(len(mt) for mt in mems)
+
+    def _live_profile(self) -> Tuple[int, int]:
+        """(live entry count, live logical bytes) of the newest versions:
+        every source's keys newest first (memtables, then runs in read
+        order) in one stable sort on the device; the first occurrence of a
+        key is its newest version.  One read-back."""
+        parts_k, parts_vl = [], []
+        for mt in self._mem_sources():
+            items = mt.snapshot_items()
+            if items:
+                parts_k.append(ops.keys_to_device(
+                    np.fromiter((k for k, _, _ in items), KEY_DTYPE,
+                                len(items)), self.device))
+                parts_vl.append(torch.tensor(
+                    [TOMBSTONE_LEN if v is None else len(v)
+                     for _, _, v in items], dtype=torch.int64,
+                    device=self.device))
+        for run in self._runs_newest_first(self._levels):
+            if len(run):
+                parts_k.append(run.keys)
+                parts_vl.append(run.vlens.to(torch.int64))
+        if not parts_k:
+            return 0, 0
+        keys, order = torch.sort(torch.cat(parts_k), stable=True)
+        first = torch.ones_like(keys, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        win_vl = torch.cat(parts_vl)[order[first]]
+        live = win_vl != TOMBSTONE_LEN
+        n_live, vbytes = torch.stack([live.sum(),
+                                      win_vl[live].sum()]).tolist()
+        return n_live, vbytes + n_live * self.config.key_bytes
+
+    def total_live_entries(self) -> int:
+        """Logical entry count (newest versions only, tombstones excluded)."""
+        return self._live_profile()[0]
+
+    def space_amplification(self) -> float:
+        """Physical bytes stored / logical bytes of the live newest versions
+        (RocksDB's definition; 1.0 when nothing is live)."""
+        mems = self._mem_sources()
+        phys = sum(r.data_bytes for lvl in self._levels for r in lvl) \
+            + sum(mt.size_bytes for mt in mems)
+        logical = self._live_profile()[1]
+        return phys / logical if logical else 1.0

@@ -10,7 +10,10 @@ A copy of the checksum half of ``repro.core.faults``:
   columns live on the card.
 
 CRC-32C is the Castagnoli polynomial (reflected 0x82F63B78); ``zlib.crc32``
-is a different polynomial.  Fault injection is left to a later slice.
+is a different polynomial.  The typed failures ``CorruptionError`` (a
+checksum mismatch) and ``StoreDegradedError`` (writes refused after the
+background pipeline gave up) are the reference's.  Fault injection is left
+to a later slice.
 
 Long rows.  Both row functions step one byte column per pass, so their cost
 grows with the row length: a 9.44 MB AutumnKV page would take 9.44M passes.
@@ -29,8 +32,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["CHUNK", "CorruptionError", "crc32c", "crc32c_rows",
-           "crc32c_rows_torch"]
+__all__ = ["CHUNK", "CorruptionError", "StoreDegradedError", "crc32c",
+           "crc32c_rows", "crc32c_rows_torch"]
 
 # Chunk length of the long-row path.  The device pass costs about seven
 # launches per chunk byte, so 1 KiB keeps one long-row checksum near 7k
@@ -52,7 +55,6 @@ def _build_table() -> np.ndarray:
 
 _TABLE = _build_table()
 _TABLE_LIST = [int(x) for x in _TABLE]  # plain ints: no numpy boxing in the scalar loop
-_TABLE_BY_DEVICE: Dict[torch.device, torch.Tensor] = {}
 
 
 # ------------------------------------------------------ zero-shift operator
@@ -87,17 +89,19 @@ def _build_shift_tables() -> np.ndarray:
 
 
 _SHIFT = _build_shift_tables()
-_SHIFT_BY_DEVICE: Dict[torch.device, torch.Tensor] = {}
+# device -> (byte table, shift tables), stored as one entry so that a
+# thread never finds one table of a device without the other
+_TABLES_BY_DEVICE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _device_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The byte table and the shift tables as int64 tensors on ``device``."""
-    if device not in _TABLE_BY_DEVICE:
-        _TABLE_BY_DEVICE[device] = torch.from_numpy(
-            _TABLE.astype(np.int64)).to(device)
-        _SHIFT_BY_DEVICE[device] = torch.from_numpy(
-            _SHIFT.astype(np.int64)).to(device)
-    return _TABLE_BY_DEVICE[device], _SHIFT_BY_DEVICE[device]
+    tables = _TABLES_BY_DEVICE.get(device)
+    if tables is None:
+        tables = (torch.from_numpy(_TABLE.astype(np.int64)).to(device),
+                  torch.from_numpy(_SHIFT.astype(np.int64)).to(device))
+        _TABLES_BY_DEVICE[device] = tables
+    return tables
 
 
 def _shift(tab, x):
@@ -250,3 +254,9 @@ class CorruptionError(RuntimeError):
         self.run_id = run_id
         self.block_id = block_id
         self.where = where
+
+
+class StoreDegradedError(RuntimeError):
+    """Writes rejected: the store is read-only after persistent background
+    failure.  Reads keep serving the committed tree; ``crash()`` +
+    ``recover()`` restores write service."""

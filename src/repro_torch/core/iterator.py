@@ -31,8 +31,9 @@ every IOStats field equal the reference's.
 I/O cost model: ``seek`` charges every participating run one iterator seek
 (``stats.seeks``/``runs_touched_range``); ``consume`` charges every run the
 data blocks *spanned* by the prefix the merged stream consumed from it,
-deduplicated across refills at block granularity.  The block cache is not
-ported yet, so every spanned block is a read.
+deduplicated across refills at block granularity.  With a block cache
+attached (``core.cache.BlockCache``) each newly spanned block first
+consults the cache, and only misses charge ``blocks_read``.
 """
 from __future__ import annotations
 
@@ -73,11 +74,12 @@ def combined_mem_items(memtables: Sequence[Memtable], key: int
 class _RunCursor:
     """Forward-only position over one immutable run, with block accounting."""
 
-    __slots__ = ("run", "stats", "n", "pos", "_charged")
+    __slots__ = ("run", "stats", "cache", "n", "pos", "_charged")
 
-    def __init__(self, run: SortedRun, stats: IOStats):
+    def __init__(self, run: SortedRun, stats: IOStats, cache=None):
         self.run = run
         self.stats = stats
+        self.cache = cache
         self.n = len(run)
         self.pos = self.n
         self._charged = -1
@@ -106,7 +108,12 @@ class _RunCursor:
             return
         b0, b1 = int(blocks[0]), int(blocks[cnt - 1])
         first_new = max(b0, self._charged + 1)
-        self.stats.blocks_read += b1 - first_new + 1
+        if self.cache is None:
+            self.stats.blocks_read += b1 - first_new + 1
+        else:
+            # span-charge the newly consumed blocks in one cache call
+            self.cache.read_block_span(self.run.run_id, first_new, b1,
+                                       self.run.block_bytes, self.stats)
         self._charged = b1
         self.pos += cnt
 
@@ -123,12 +130,13 @@ class MergingIterator:
     def __init__(self, runs: Sequence[SortedRun],
                  memtables: Optional[Sequence[Memtable]] = None,
                  stats: Optional[IOStats] = None,
-                 chunk: int = _MAX_WINDOW):
+                 chunk: int = _MAX_WINDOW, cache=None):
         """``memtables`` are newest first; duplicates resolve
-        newest-memtable-wins at seek time."""
+        newest-memtable-wins at seek time.  ``cache`` charges the blocks
+        the cursors consume through the block cache."""
         self.stats = stats if stats is not None else IOStats()
         self._cursors: List[_RunCursor] = [
-            _RunCursor(r, self.stats) for r in runs if len(r)]
+            _RunCursor(r, self.stats, cache) for r in runs if len(r)]
         self._memtables: List[Memtable] = list(memtables or [])
         self._mem_keys = np.zeros(0, dtype=KEY_DTYPE)
         self._mem_items: List[Entry] = []

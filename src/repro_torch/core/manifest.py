@@ -6,8 +6,9 @@ compactions install a new version atomically.  The metadata log mirrors
 RocksDB's MANIFEST: an append-only record of version edits with an fsync
 watermark; the runs of the last 8 durable versions stay alive, as in the
 reference, and so do the runs of every version a reader has pinned
-(snapshots, refcounted).  Crash recovery of the log is left to a later
-slice.
+(snapshots, refcounted).  A crash loses the edits past the fsync
+watermark, and recovery restores the newest checksum-valid durable
+version.
 """
 from __future__ import annotations
 
@@ -154,6 +155,27 @@ class Manifest:
         """Sum of all reader references (leak audit hook)."""
         with self._mu:
             return sum(self._pin_refs.values())
+
+    def crash(self):
+        """Lose the versions past the fsync watermark (simulated crash);
+        reader pins are process state and go too."""
+        with self._mu:
+            self._pinned.clear()
+            self._pin_refs.clear()
+            self._log = self._log[: max(self._synced_upto, 1)]
+
+    def recover_current(self) -> Tuple[Version, int]:
+        """The newest checksum-valid version, popping any corrupt tail
+        edits (each popped edit was itself a durable prefix, so falling
+        back is prefix-consistent); version 0, the empty tree, is the
+        floor.  Returns ``(version, n_popped)``."""
+        with self._mu:
+            popped = 0
+            while len(self._log) > 1 and not self._log[-1].verify():
+                self._log.pop()
+                popped += 1
+            self._synced_upto = min(self._synced_upto, len(self._log))
+            return self._log[-1], popped
 
     def live_run_ids(self) -> List[int]:
         """Runs of the durable tail and of every pinned version."""

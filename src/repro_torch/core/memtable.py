@@ -6,13 +6,15 @@ a skiplist memtable).  The WAL is an append-only in-memory byte log with an
 explicit fsync barrier counter, with the reference's frames byte for byte.
 Both stay on the host; :meth:`Memtable.to_run` packs the columns in numpy
 and uploads them to the device once; :meth:`Memtable.scan` serves range
-reads from a key-ordered copy built once after the last write.  Rotation
-(async mode) and WAL replay (recovery) are left to later slices.
+reads from a key-ordered copy built once after the last write.  Recovery
+replays the log's checksum-valid frames (:meth:`WriteAheadLog.records`),
+and async rotation freezes a memtable with its log into an
+:class:`ImmutableMemtable`, as the reference does.
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +87,24 @@ class WriteAheadLog:
         self._buf += body
         self._buf += value
         stats.wal_appends += 1
+
+    def append_batch(self, items: Sequence[Tuple[int, Optional[bytes]]],
+                     first_seq: int, stats: IOStats) -> None:
+        """Append one batch of ``(key, value-or-None)`` records in a single
+        vectorized pass; record ``i`` gets sequence ``first_seq + i``, with
+        the byte layout of ``len(items)`` scalar :meth:`append` calls."""
+        n = len(items)
+        if n == 0:
+            return
+        values = [v for _, v in items]
+        self.append_batch_cols(
+            values,
+            np.fromiter((k for k, _ in items), np.uint64, n),
+            np.fromiter((_DEL if v is None else _PUT for v in values),
+                        np.uint8, n),
+            np.fromiter((len(v) if v is not None else 0 for v in values),
+                        np.int64, n),
+            first_seq, stats)
 
     def append_batch_cols(self, values: Sequence[Optional[bytes]],
                           keys_arr: np.ndarray, ops_arr: np.ndarray,
@@ -159,31 +179,112 @@ class WriteAheadLog:
         self._buf = bytearray()
         self._synced_upto = 0
 
+    def crash(self):
+        """Simulate a crash: the unsynced suffix is lost."""
+        self._buf = self._buf[:self._synced_upto]
+
+    def _scan_frames(self):
+        """Parse and verify frames: ``(metas, frame_offsets, good_end)``.
+
+        ``metas[i]`` is (op, key, seq, vlen) of the i-th *checksum-valid*
+        frame; ``good_end`` is the byte offset just past the last valid
+        frame (everything beyond is a torn tail or corruption).  The
+        checksums are one vectorized :func:`crc32c_rows` pass over padded
+        frame bodies in bounded spans, as the reference's.
+        """
+        buf = bytes(self._buf)
+        fo, hsz = _CRC.size, _HDR.size
+        fsz = fo + hsz
+        n = len(buf)
+        metas, offs, stored = [], [], []
+        off = 0
+        while off + fsz <= n:
+            (crc,) = _CRC.unpack_from(buf, off)
+            op, key, seq, vlen = _HDR.unpack_from(buf, off + fo)
+            end = off + fsz + vlen
+            if end > n:
+                break  # torn tail (or a corrupt length running past the end)
+            metas.append((op, key, seq, vlen))
+            offs.append(off)
+            stored.append(crc)
+            off = end
+        if not metas:
+            return [], [], 0
+        vlens = np.fromiter((m[3] for m in metas), np.int64, len(metas))
+        arr = np.frombuffer(buf, np.uint8)
+        starts = np.fromiter(offs, np.int64, len(offs)) + fo
+        lens = hsz + vlens
+        stored_a = np.fromiter(stored, np.uint32, len(stored))
+        ok = np.empty(len(metas), bool)
+        for i, j in _pad_spans(vlens, hsz):
+            cols = np.arange(int(lens[i:j].max()), dtype=np.int64)
+            mask = cols[None, :] < lens[i:j, None]
+            mat = np.zeros((j - i, cols.size), np.uint8)
+            mat[mask] = arr[(starts[i:j, None] + cols)[mask]]
+            ok[i:j] = crc32c_rows(mat, lens[i:j]) == stored_a[i:j]
+        good = len(metas) if bool(ok.all()) else int(np.argmin(ok))
+        end = (offs[good - 1] + fsz + metas[good - 1][3]) if good else 0
+        return metas[:good], offs[:good], end
+
+    def repair(self) -> int:
+        """Drop everything past the last checksum-valid frame (recovery
+        path); returns the number of bytes discarded."""
+        _, _, good_end = self._scan_frames()
+        dropped = len(self._buf) - good_end
+        if dropped:
+            self._buf = self._buf[:good_end]
+            self._synced_upto = min(self._synced_upto, good_end)
+        return dropped
+
+    def records(self) -> Iterator[Tuple[int, int, int, bytes]]:
+        """Replay checksum-valid ``(op, key, seq, value)`` records; stops at
+        the first bad frame."""
+        metas, offs, _ = self._scan_frames()
+        buf, fsz = bytes(self._buf), _CRC.size + _HDR.size
+        for (op, key, seq, vlen), off in zip(metas, offs):
+            p = off + fsz
+            yield op, key, seq, buf[p:p + vlen]
+
     def __len__(self):
         return len(self._buf)
 
 
 class Memtable:
-    """Insertion buffer. Size accounting matches the run entry-size model."""
+    """Insertion buffer. Size accounting matches the run entry-size model.
+
+    One thread writes; readers on other threads take point-in-time copies
+    (:meth:`snapshot_items`, :meth:`sorted_entries`), never a lock.
+    """
 
     def __init__(self, capacity_bytes: int, key_bytes: int = KEY_BYTES,
                  block_size: int = BLOCK_SIZE):
         self.capacity_bytes = capacity_bytes
         self.key_bytes = key_bytes
         self.block_size = block_size
+        self.frozen = False
         self._data: Dict[int, Tuple[int, Optional[bytes]]] = {}
         self._bytes = 0
-        # (keys, items) in key order, built by the first scan after a write
-        self._sorted: Optional[Tuple[np.ndarray, List[Entry]]] = None
+        # bumped after every write; the key-ordered copy is valid only for
+        # the generation it was built at
+        self._gen = 0
+        self._sorted: Optional[Tuple[int, np.ndarray, List[Entry]]] = None
+
+    def freeze(self) -> "Memtable":
+        """Mark immutable (async rotation): reads stay valid from any thread
+        because the dict is never touched again; writes become errors."""
+        self.frozen = True
+        return self
 
     def put(self, key: int, seq: int, value: Optional[bytes]):
         """value=None is a tombstone."""
-        self._sorted = None
+        if self.frozen:
+            raise RuntimeError("write to a frozen (rotated) memtable")
         prev = self._data.get(key)
         if prev is not None:
             self._bytes -= self.key_bytes + (len(prev[1]) if prev[1] is not None else 0)
         self._data[key] = (seq, value)
         self._bytes += self.key_bytes + (len(value) if value is not None else 0)
+        self._gen += 1
 
     def put_batch(self, keys: Sequence[int],
                   values: Sequence[Optional[bytes]], first_seq: int,
@@ -199,7 +300,8 @@ class Memtable:
         engine passes its chunk-sizing cumsum; ignored when duplicates
         collapse entries).
         """
-        self._sorted = None
+        if self.frozen:
+            raise RuntimeError("write to a frozen (rotated) memtable")
         data = self._data
         kb = self.key_bytes
         n = len(keys)
@@ -216,20 +318,33 @@ class Memtable:
             removed = 0
         data.update(incoming)
         self._bytes += added - removed
+        self._gen += 1
 
     def get(self, key: int) -> Optional[Tuple[int, Optional[bytes]]]:
         return self._data.get(key)
+
+    def snapshot_items(self) -> List[Entry]:
+        """Point-in-time copy of the ``(key, seq, value)`` triples, in
+        insertion order.  ``dict.copy`` is one C-level call under the GIL,
+        so a reader racing the writer gets a consistent copy without a
+        lock."""
+        return [(k, s, v) for k, (s, v) in self._data.copy().items()]
 
     def sorted_entries(self) -> Tuple[np.ndarray, List[Entry]]:
         """Every ``(key, seq, value|None)`` in key order, and the keys as a
         uint64 array.  Built once after the last write and shared by every
         reader until the next one; a write replaces the lists, never
-        mutates them, so a reader keeps the view it took."""
-        if self._sorted is None:
-            items = [(k, s, v) for k, (s, v) in sorted(self._data.items())]
+        mutates them, so a reader keeps the view it took.  The generation
+        is read before the copy: a copy that races a write is labelled
+        with the older generation and so is never reused after it."""
+        gen = self._gen
+        cached = self._sorted
+        if cached is None or cached[0] != gen:
+            items = sorted(self.snapshot_items())
             keys = np.fromiter((e[0] for e in items), KEY_DTYPE, len(items))
-            self._sorted = (keys, items)
-        return self._sorted
+            cached = (gen, keys, items)
+            self._sorted = cached
+        return cached[1], cached[2]
 
     def scan(self, start_key: int,
              limit: Optional[int] = None) -> List[Entry]:
@@ -302,6 +417,26 @@ class Memtable:
         return run
 
     def clear(self):
+        if self.frozen:
+            raise RuntimeError("clear of a frozen (rotated) memtable")
         self._data.clear()
         self._bytes = 0
-        self._sorted = None
+        self._gen += 1
+
+
+class ImmutableMemtable:
+    """A frozen memtable queued for background flush, plus its WAL segment.
+
+    Rotation (async mode) freezes the active memtable and hands it here
+    with the WAL that logged exactly its records; the pair stays readable
+    on every read path (between the active memtable and L0, newest first)
+    until the background flush installs the run, and the WAL segment,
+    fully fsynced at rotation, is replayed by recovery if a crash beats
+    the flush.
+    """
+
+    __slots__ = ("memtable", "wal")
+
+    def __init__(self, memtable: Memtable, wal: WriteAheadLog):
+        self.memtable = memtable.freeze()
+        self.wal = wal

@@ -41,17 +41,33 @@ _run_ids = itertools.count()
 _SIGN = 1 << 63
 
 
+# Scratch bound of the per-entry checksum pass: rows are checksummed in
+# chunks whose padded byte matrix stays under this many bytes, so a
+# verification of a 10M-entry store never holds n x (20 + Vmax) at once.
+_CRC_SCRATCH = 256 << 20
+
+
 def _entry_crcs(keys: torch.Tensor, seqs: torch.Tensor, vlens: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
     """CRC-32C per entry over its canonical bytes, as the reference:
     key(8 LE, the u64 key) | seq(8 LE) | vlen(4 LE, signed — tombstones
-    included) | value[:max(vlen,0)]."""
+    included) | value[:max(vlen,0)].  Rows go in chunks of at most
+    :data:`_CRC_SCRATCH` padded bytes."""
     n = keys.numel()
-    user_keys = keys ^ -_SIGN          # undo the order map: the u64 bits
-    mat = torch.cat([user_keys.view(torch.uint8).view(n, 8),
-                     seqs.view(torch.uint8).view(n, 8),
-                     vlens.view(torch.uint8).view(n, 4), vals], dim=1)
-    return crc32c_rows_torch(mat, 20 + vlens.clamp(min=0).to(torch.int64))
+    if n == 0:
+        return keys.new_zeros(0)
+    step = max(1, _CRC_SCRATCH // (20 + vals.shape[1]))
+    out = []
+    for i in range(0, n, step):
+        j = min(n, i + step)
+        user_keys = keys[i:j] ^ -_SIGN      # undo the order map: the u64 bits
+        mat = torch.cat([user_keys.view(torch.uint8).view(j - i, 8),
+                         seqs[i:j].view(torch.uint8).view(j - i, 8),
+                         vlens[i:j].view(torch.uint8).view(j - i, 4),
+                         vals[i:j]], dim=1)
+        out.append(crc32c_rows_torch(
+            mat, 20 + vlens[i:j].clamp(min=0).to(torch.int64)))
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _xor_scan(x: torch.Tensor) -> torch.Tensor:
@@ -94,15 +110,12 @@ class SortedRun:
             self.data_bytes = data_bytes
             self.n_blocks = last_block + 1
             self.min_key, self.max_key = lo + _SIGN, hi + _SIGN
-            blocks = torch.arange(self.n_blocks, device=keys.device)
-            first_idx = torch.searchsorted(self.block_of, blocks)
             # Fence pointer = first key of each block (in-memory index).
-            self.fence_keys = keys[first_idx]
-            # Per-block checksum = XOR of member-entry CRC-32Cs; a block
-            # spanned entirely by a giant neighbouring entry has none: 0.
-            acc = F.pad(_xor_scan(_entry_crcs(keys, seqs, vlens, vals)), (1, 0))
-            end_idx = torch.searchsorted(self.block_of, blocks, right=True)
-            self.block_crcs = acc[end_idx] ^ acc[first_idx]
+            self.fence_keys = keys[torch.searchsorted(
+                self.block_of, torch.arange(self.n_blocks,
+                                            device=keys.device))]
+            self.block_crcs = self._block_crcs_from(
+                _entry_crcs(keys, seqs, vlens, vals))
         else:
             self.data_bytes = self.n_blocks = self.min_key = self.max_key = 0
             self.fence_keys = keys.new_zeros(0)
@@ -125,9 +138,55 @@ class SortedRun:
             (self.vlens, other.vlens), (self.vals, other.vals),
             (self.bloom.bits, other.bloom.bits)))
 
+    def block_bytes(self, block_id: int) -> int:
+        """Physical bytes stored in one block (the last block may be short)."""
+        if block_id < 0 or block_id >= self.n_blocks:
+            return 0
+        if block_id == self.n_blocks - 1:
+            return self.data_bytes - block_id * self.block_size
+        return self.block_size
+
+    # ------------------------------------------------------------- integrity
+    def _block_crcs_from(self, entry_crcs: torch.Tensor) -> torch.Tensor:
+        """Fold per-entry CRCs into per-block checksums: the XOR of the
+        block's member entries (order-independent); a block spanned
+        entirely by a giant neighbouring entry has none, and 0."""
+        blocks = torch.arange(self.n_blocks, device=self.keys.device)
+        acc = F.pad(_xor_scan(entry_crcs), (1, 0))
+        return acc[torch.searchsorted(self.block_of, blocks, right=True)] \
+            ^ acc[torch.searchsorted(self.block_of, blocks)]
+
+    def verify_block(self, block_id: int) -> bool:
+        """Recompute one block's checksum from its entries; True iff
+        clean."""
+        sel = torch.nonzero(self.block_of == block_id).squeeze(1)
+        fresh = 0
+        for c in _entry_crcs(self.keys[sel], self.seqs[sel], self.vlens[sel],
+                             self.vals[sel]).tolist():
+            fresh ^= c
+        return fresh == int(self.block_crcs[block_id])
+
+    def verify(self) -> List[int]:
+        """Recompute every block checksum on the device; the bad block ids
+        come back in one copy (empty list == the run is clean).  Used by
+        ``scrub()`` and recovery."""
+        if self._len == 0:
+            return []
+        fresh = self._block_crcs_from(
+            _entry_crcs(self.keys, self.seqs, self.vlens, self.vals))
+        return torch.nonzero(fresh != self.block_crcs).squeeze(1).tolist()
+
+    def _charge_block(self, block_id: int, stats: IOStats, cache) -> None:
+        """One block touch: through the cache when present, else raw I/O."""
+        if cache is None:
+            stats.blocks_read += 1
+        else:
+            cache.read_block(self.run_id, int(block_id),
+                             self.block_bytes(int(block_id)), stats)
+
     # ----------------------------------------------------------------- reads
     def point_get_batch(self, keys: torch.Tensor, stats: IOStats,
-                        use_bloom: bool = True
+                        use_bloom: bool = True, cache=None
                         ) -> Tuple[np.ndarray, List[Optional[bytes]],
                                    torch.Tensor]:
         """Vectorized point lookup of order-mapped ``keys`` (on this run's
@@ -138,7 +197,10 @@ class SortedRun:
         for a tombstone); ``rest`` is ``keys[~found]``, still on the device.
         One bloom kernel launch + one searchsorted over the whole batch,
         one wait for the hit count and one device-to-host copy; aggregate
-        IOStats accounting is identical to the reference's.
+        IOStats accounting is identical to the reference's.  With a
+        ``cache`` the same copy carries each key's candidate block (-1 for
+        a key the filter rejected), and the candidates' reads go through
+        the cache in batch order, as the reference charges them.
         """
         n = keys.numel()
         found = np.zeros(n, dtype=bool)
@@ -157,10 +219,13 @@ class SortedRun:
         n_hit = hit_pos.numel()
         rows = idxc[hit_pos]
         n_maybe = maybe.sum() if probing else hit_pos.new_tensor(n)
-        # one transfer: the candidate count, hit positions and value
-        # lengths (int64), then the hit rows' values
-        meta = torch.cat([n_maybe.view(1), hit_pos,
-                          self.vlens[rows].to(torch.int64)])
+        # one transfer: the candidate count, hit positions, value lengths
+        # (and candidate blocks) as int64, then the hit rows' values
+        parts = [n_maybe.view(1), hit_pos, self.vlens[rows].to(torch.int64)]
+        if cache is not None:
+            blk = self.block_of[idxc]
+            parts.append(torch.where(maybe, blk, -1) if probing else blk)
+        meta = torch.cat(parts)
         n_meta = meta.numel()
         buf = torch.cat([meta.view(torch.uint8),
                          self.vals[rows].reshape(-1)]).cpu().numpy()
@@ -172,10 +237,15 @@ class SortedRun:
         if n_cand == 0:
             return found, values, keys
         # Fence pointers give each candidate its unique block: 1 read apiece.
-        stats.blocks_read += n_cand
+        if cache is None:
+            stats.blocks_read += n_cand
+        else:
+            blk = meta[1 + 2 * n_hit:]
+            cache.read_blocks(self.run_id, blk[blk >= 0].tolist(),
+                              self.block_bytes, stats)
         stats.false_positives += n_cand - n_hit
         pos = meta[1:1 + n_hit]
-        lens = meta[1 + n_hit:].tolist()
+        lens = meta[1 + n_hit:1 + 2 * n_hit].tolist()
         found[pos] = True
         vmax = self.vals.shape[1]
         flat = buf[n_meta * 8:].tobytes()
@@ -214,32 +284,37 @@ class SortedRun:
                                    self.block_of[end_idx - 1]]).tolist()
         return last - first + 1
 
-    def point_get(self, key: int, stats: IOStats,
-                  use_bloom: bool = True) -> Tuple[bool, Optional[bytes]]:
+    def point_get(self, key: int, stats: IOStats, use_bloom: bool = True,
+                  cache=None) -> Tuple[bool, Optional[bytes]]:
         """(found, value_or_None_if_tombstone) of one u64 key: the batch
         path on one key, with the same accounting as the reference's scalar
         ``point_get``."""
         found, values, _ = self.point_get_batch(
-            ops.keys_to_device([key], self.device), stats, use_bloom)
+            ops.keys_to_device([key], self.device), stats, use_bloom, cache)
         return bool(found[0]), values[0]
 
 
-def seek_batch(runs: Sequence[SortedRun], key: int
-               ) -> Tuple[List[int], List[Optional[int]]]:
+def seek_batch(runs: Sequence[SortedRun], key: int, with_blocks=False):
     """Each non-empty run's first index whose u64 key is >= ``key``, and
-    the u64 key there (None past the run's end).  One searchsorted and one
-    gather a run are launched, and one read-back brings all of them."""
+    the u64 key there (None past the run's end); ``with_blocks`` adds the
+    block id there (of the last entry past the end).  One searchsorted and
+    one gather (two) a run are launched, and one read-back brings all of
+    them."""
     if not runs:
-        return [], []
+        return ([], [], []) if with_blocks else ([], [])
     mapped = ops.order_of(key)
     parts = []
     for r in runs:
         i = torch.searchsorted(r.keys, mapped).view(1)
-        parts += [i, r.keys[i.clamp(max=len(r) - 1)]]
+        ic = i.clamp(max=len(r) - 1)
+        parts += [i, r.keys[ic]] + ([r.block_of[ic]] if with_blocks else [])
+    width = 3 if with_blocks else 2
     flat = torch.cat(parts).tolist()
-    idx = flat[0::2]
+    idx = flat[0::width]
     keys = [None if i >= len(r) else k + _SIGN
-            for r, i, k in zip(runs, idx, flat[1::2])]
+            for r, i, k in zip(runs, idx, flat[1::width])]
+    if with_blocks:
+        return idx, keys, flat[2::3]
     return idx, keys
 
 

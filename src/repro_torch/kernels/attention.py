@@ -180,7 +180,8 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             Sk, H, KH, dh, int(causal), int(window), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check("attention", rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES["flash_attention"] += 1
     return out
 
 
@@ -232,5 +233,6 @@ def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             splits, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check("attention", rc, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES["paged_attention"] += 1
     return out

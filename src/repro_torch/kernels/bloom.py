@@ -236,8 +236,9 @@ def probe_cuda(keys: torch.Tensor, bits: torch.Tensor,
             keys.data_ptr(), n, bits.data_ptr(), bits.numel(), k,
             out.data_ptr(), sms, torch.cuda.current_stream().cuda_stream)
     _build.check("bloom", rc, "bloom_probe")
-    LAUNCHES["bloom_probe"] += 1
-    LAUNCH_SIZES["bloom_probe"].append((n, bits.numel()))
+    with _build.COUNT_LOCK:
+        LAUNCHES["bloom_probe"] += 1
+        LAUNCH_SIZES["bloom_probe"].append((n, bits.numel()))
     return out
 
 
@@ -280,6 +281,7 @@ def build_cuda(keys: torch.Tensor, m_words: int, k: int) -> torch.Tensor:
             plan.cap, fill.data_ptr(), seg.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check("bloom", rc, "bloom_build")
-    LAUNCHES["bloom_build"] += 1
-    LAUNCH_SIZES["bloom_build"].append(n)
+    with _build.COUNT_LOCK:
+        LAUNCHES["bloom_build"] += 1
+        LAUNCH_SIZES["bloom_build"].append(n)
     return bits

@@ -118,6 +118,7 @@ def merge_pair_cuda(a: torch.Tensor, b: torch.Tensor
             None if splits is None else splits.data_ptr(), keys.data_ptr(),
             src.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check("merge", rc, "merge_pair")
-    LAUNCHES["merge_pair"] += 1
-    LAUNCH_SIZES["merge_pair"].append((na, nb))
+    with _build.COUNT_LOCK:
+        LAUNCHES["merge_pair"] += 1
+        LAUNCH_SIZES["merge_pair"].append((na, nb))
     return keys, src

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from . import attention as _attention
 from . import bloom as _bloom
 from . import merge as _merge
@@ -32,24 +33,28 @@ PLAIN_CALLS = {"bloom_probe": 0, "bloom_build": 0, "merge_pair": 0,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {**_bloom.LAUNCHES, **_merge.LAUNCHES, **_attention.LAUNCHES}
+    with _build.COUNT_LOCK:
+        return {**_bloom.LAUNCHES, **_merge.LAUNCHES, **_attention.LAUNCHES}
 
 
 def launch_sizes() -> Dict[str, list]:
     """The elements of every store-kernel launch since the last reset:
     keys of each ``bloom_build``, ``(keys, filter words)`` of each
     ``bloom_probe``, ``(na, nb)`` of each ``merge_pair``."""
-    return {**_bloom.LAUNCH_SIZES, **_merge.LAUNCH_SIZES}
+    with _build.COUNT_LOCK:
+        return {name: list(v) for name, v in
+                {**_bloom.LAUNCH_SIZES, **_merge.LAUNCH_SIZES}.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_bloom.LAUNCHES, _merge.LAUNCHES, _attention.LAUNCHES,
-                   PLAIN_CALLS):
-        for name in counts:
-            counts[name] = 0
-    for sizes in (_bloom.LAUNCH_SIZES, _merge.LAUNCH_SIZES):
-        for name in sizes:
-            sizes[name].clear()
+    with _build.COUNT_LOCK:
+        for counts in (_bloom.LAUNCHES, _merge.LAUNCHES, _attention.LAUNCHES,
+                       PLAIN_CALLS):
+            for name in counts:
+                counts[name] = 0
+        for sizes in (_bloom.LAUNCH_SIZES, _merge.LAUNCH_SIZES):
+            for name in sizes:
+                sizes[name].clear()
 
 
 # ------------------------------------------------------------- key map
@@ -95,7 +100,8 @@ def _route(t: torch.Tensor, name: str) -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
-        PLAIN_CALLS[name] += 1
+        with _build.COUNT_LOCK:
+            PLAIN_CALLS[name] += 1
         return False
     raise ValueError(f"{name}: unsupported device {t.device}")
 

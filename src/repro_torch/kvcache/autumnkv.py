@@ -15,12 +15,12 @@ serialised from their bits on the device.  A page blob is sliced on the
 device and crosses to the host in one copy; writing one back is one copy
 the other way, into the cache in place.
 
-The store runs the reference's configuration on the port's synchronous
-device store: its ``async_compaction``, ``cache_bytes``, ``pin_l0_bytes``,
-``shards`` and ``compaction_workers`` knobs stay at their defaults until
-the scheduler, block cache and sharded facade are ported (ROADMAP.md A5,
-A6, A8).  Answers are the same; ``stats()`` has no ``block_cache`` or
-``latency`` entries until then.
+The store runs the reference's configuration on the port's device store:
+async compaction on two workers, a 4 MiB block cache and a 2 MiB pinned
+L0.  Only ``shards=2`` is left at its default, one store, until the
+sharded facade is ported (ROADMAP.md A8); answers, hits and pages are the
+same either way.  ``stats()`` has no ``latency`` entries (telemetry is not
+ported).
 """
 from __future__ import annotations
 
@@ -55,11 +55,15 @@ def chain_hashes(tokens: np.ndarray, page: int = PAGE_TOKENS) -> List[int]:
 
 
 def store_config() -> LSMConfig:
-    """The reference's AutumnKV store configuration, with the knobs the
-    port does not support yet at their defaults."""
+    """The reference's AutumnKV store configuration but ``shards=2``,
+    which waits for the sharded facade: hot page blocks served from the
+    cache, L0 pinned so fresh inserts stay resident, and page-insert bursts
+    after prefill returning without paying flush or compaction."""
     return LSMConfig(policy="garnering", T=2.0, c=0.8, memtable_bytes=1 << 20,
                      base_level_bytes=8 << 20, bits_per_key=10,
-                     bloom_allocation="monkey")
+                     bloom_allocation="monkey",
+                     cache_bytes=4 << 20, pin_l0_bytes=2 << 20,
+                     async_compaction=True, compaction_workers=2)
 
 
 def _kv_axis(logical: Tuple[Optional[str], ...]) -> Optional[int]:
@@ -219,9 +223,10 @@ class AutumnKVCache:
                     pages_written=self.pages_written,
                     pages_deduped=self.pages_deduped,
                     levels=self.db.num_levels_in_use,
+                    block_cache=self.db.cache_summary(),
                     io=dataclasses.asdict(self.db.stats))
 
     def close(self) -> None:
-        """The synchronous store holds no workers; kept for the reference's
-        interface."""
+        """Drain and stop the store's background compaction workers; the
+        cache keeps serving afterwards on the synchronous path."""
         self.db.close()

@@ -109,15 +109,16 @@ def test_default_device_is_cuda_and_never_the_cpu():
     assert rt.LSMStore(rt.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-OFF_DEFAULT = {"async_compaction": True, "cache_bytes": 1 << 20,
-               "pin_l0_bytes": 1 << 20, "shards": 2,
-               "use_range_views": True, "telemetry": object(),
+OFF_DEFAULT = {"shards": 2, "use_range_views": True, "telemetry": object(),
                "faults": object(), "tuner": object(),
                "paranoid_checks": True, "rebalance_interval_ops": 100,
-               "cache_policy": "lru", "compaction_workers": 2,
-               "slowdown_trigger": 8, "stall_trigger": 16,
-               "shard_splitters": (1 << 63,), "rebalance_ratio": 1.5,
-               "bg_max_retries": 0}
+               "shard_splitters": (1 << 63,), "rebalance_ratio": 1.5}
+# the fields the scheduler and the block cache brought in, at the same
+# non-default values the list above held them at
+LIFTED = {"async_compaction": True, "cache_bytes": 1 << 20,
+          "pin_l0_bytes": 1 << 20, "cache_policy": "lru",
+          "compaction_workers": 2, "slowdown_trigger": 8,
+          "stall_trigger": 16, "bg_max_retries": 0}
 
 
 @pytest.mark.parametrize("field", sorted(OFF_DEFAULT))
@@ -130,9 +131,83 @@ def test_unsupported_config_fields_raise(field):
 
 def test_unsupported_list_covers_every_non_default_field():
     assert set(OFF_DEFAULT) == set(_UNSUPPORTED)
+    assert not set(LIFTED) & set(_UNSUPPORTED)
     names = {f.name for f in dataclasses.fields(rt.LSMConfig)}
+    assert set(LIFTED) | set(OFF_DEFAULT) <= names
     assert "use_pallas_bloom" not in names
     assert "use_pallas_merge" not in names
+
+
+@pytest.mark.parametrize("field", sorted(LIFTED))
+def test_lifted_config_field_takes_effect_as_in_the_reference(field):
+    """One lifted field at its non-default value, on a CPU store and on
+    the reference store with the same configuration (the scheduler's knobs
+    with ``async_compaction``, the policy with a cache, where alone they
+    act on nothing in either): the field acts the same way on both, and
+    both end with the same tree, answers and counters."""
+    import repro.core as ref
+    from test_torch_store import assert_same_tree
+    kw = dict(memtable_bytes=1 << 11, base_level_bytes=1 << 13,
+              bits_per_key=8, bloom_allocation="monkey",
+              **{field: LIFTED[field]})
+    if field in ("compaction_workers", "slowdown_trigger", "stall_trigger",
+                 "bg_max_retries"):
+        kw["async_compaction"] = True
+    if field == "cache_policy":
+        kw["cache_bytes"] = 1 << 14
+    stores = [rt.LSMStore(rt.LSMConfig(**kw), device="cpu"),
+              ref.LSMStore(ref.LSMConfig(**kw))]
+    rng = np.random.default_rng(len(field))
+    keys = rng.integers(0, 400, 1500).tolist()
+    for s in stores:
+        assert getattr(s.config, field) == LIFTED[field]
+        if field in ("slowdown_trigger", "bg_max_retries"):
+            s._scheduler.pause()         # the backlog grows: every rotation
+        for i, k in enumerate(keys):     # past the 8th is a slowdown
+            s.put(k, b"%d" % i)
+        if field == "bg_max_retries":    # the first flush job fails
+            def boom(imm):
+                raise RuntimeError("injected background failure")
+            s._bg_flush = boom
+        s.flush()
+        if field == "slowdown_trigger":
+            assert s.stats.write_slowdowns == len(s._imm) - 8 > 0
+        if field in ("slowdown_trigger", "bg_max_retries"):
+            s._scheduler.resume()
+        if field == "bg_max_retries":
+            with pytest.raises(RuntimeError, match="background"):
+                s.wait_for_quiesce(60)
+            assert s.degraded and s.stats.bg_retries == 0
+            assert s.stats.bg_gave_up == 1
+            del s._bg_flush
+            s.crash()
+            s.recover()
+        assert s.wait_for_quiesce(60)
+        if field == "stall_trigger":
+            assert s.stats.write_stalls == 0     # 16 never reached
+        if field == "compaction_workers":
+            assert len(s._scheduler._threads) == 2
+        if field == "cache_policy":
+            assert s.block_cache.policy == "lru"
+        if field == "pin_l0_bytes":
+            assert s.block_cache.capacity_bytes == 0
+            assert s.pinned_l0.pin_l0_bytes == 1 << 20
+        if field == "async_compaction":
+            assert s.stats.bg_flushes > 0
+    answers = [[s.get(k) for k in range(0, 420, 7)]
+               + s.multi_get(list(range(420))) + s.scan(13, 50)
+               for s in stores]
+    assert answers[0] == answers[1]
+    if field != "bg_max_retries":       # recovery rebuilt the memtable
+        assert_same_tree(*stores)
+    timing = ("stall_ns", "write_stalls") + (
+        () if field == "slowdown_trigger" else ("write_slowdowns",))
+    st = [{k: v for k, v in dataclasses.asdict(s.stats).items()
+           if k not in timing} for s in stores]
+    assert st[0] == st[1]
+    assert stores[0].cache_summary() == stores[1].cache_summary()
+    for s in stores:
+        s.close()
 
 
 # ------------------------------------------------------------ on the card
@@ -404,4 +479,95 @@ def test_cuda_store_range_reads_equal_cpu_store(cuda):
         s.release_snapshot(snap)
         assert s.manifest.total_pin_refs() == 0
     assert len(stores[0].storage) == len(stores[1].storage)
+    torch.cuda.synchronize()
+
+
+def store_pair_steps(cuda, sync_cpu: bool, **kw):
+    """A CUDA store with async compaction, a block cache and a pin budget,
+    and a CPU store of the same configuration (synchronous if
+    ``sync_cpu``), after the same seeded op script."""
+    from test_torch_store import gen_ops
+    base = dict(memtable_bytes=2 << 10, base_level_bytes=4 << 10,
+                bits_per_key=10.0, cache_bytes=1 << 16, pin_l0_bytes=1 << 14,
+                cache_policy="lru", **kw)
+    stores = [rt.LSMStore(rt.LSMConfig(async_compaction=True, **base),
+                          device=cuda.type),      # "cuda": no index given
+              rt.LSMStore(rt.LSMConfig(async_compaction=not sync_cpu,
+                                       **base), device="cpu")]
+    for kind, args in gen_ops(7, 3000):
+        for s in stores:
+            getattr(s, kind)(*args)
+    return stores
+
+
+def timing_free(store) -> dict:
+    skip = ("stall_ns", "write_stalls", "write_slowdowns", "bg_flushes",
+            "bg_compactions")
+    return {k: v for k, v in dataclasses.asdict(store.stats).items()
+            if k not in skip}
+
+
+@pytest.mark.cuda
+def test_cuda_async_cached_store_equals_cpu_sync_store(cuda):
+    """The CUDA store's flushes and compactions run on the scheduler's
+    worker thread, its reads through the block cache: after quiesce the
+    tree, every answer and every counter equal the CPU synchronous
+    store's, and the store kernels launched from the worker."""
+    from test_torch_store import read_batches
+    ops.reset_launch_counts()
+    stores = store_pair_steps(cuda, sync_cpu=True)
+    assert stores[0].device == cuda
+    for s in stores:
+        s.flush()
+    assert stores[0].wait_for_quiesce(120)
+    counts = ops.launch_counts()
+    assert counts["bloom_build"] > 0 and counts["merge_pair"] > 0
+    for batch in read_batches(1):
+        assert stores[0].multi_get(batch) == stores[1].multi_get(batch)
+    starts = [0, 5, 2**63, 2**64 - 1] + list(range(0, 4100, 211))
+    assert [stores[0].scan(a, 30) for a in starts] == \
+        [stores[1].scan(a, 30) for a in starts]
+    assert [stores[0].seek(a) for a in starts] == \
+        [stores[1].seek(a) for a in starts]
+    assert ops.launch_counts()["bloom_probe"] > 0
+    a, b = (rt.columns_of(s) for s in stores)
+    for lvl_a, lvl_b in zip(a["levels"], b["levels"]):
+        for ra, rb in zip(lvl_a, lvl_b):
+            for name in ra:
+                np.testing.assert_array_equal(ra[name], rb[name])
+    assert timing_free(stores[0]) == timing_free(stores[1])
+    assert stores[0].cache_summary() == stores[1].cache_summary()
+    st = stores[0].stats
+    assert st.bg_flushes > 0 and st.bg_retries == st.bg_gave_up == 0
+    assert not stores[0].degraded
+    stores[0].close()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_crash_recover_reads_back_every_fsynced_write(cuda):
+    """Crash the CUDA store with rotations queued and an unsynced tail:
+    recovery (WAL replay, scrub of every run on the card) reads back every
+    fsynced write and loses the tail, as the CPU store does."""
+    stores = store_pair_steps(cuda, sync_cpu=False)
+    for s in stores:
+        s.flush()                          # fsyncs: all of the script
+        s.put_batch(list(range(5000, 5040)), b"unsynced")
+    want = stores[1].multi_get(list(range(4100)))
+    for s in stores:
+        s.crash()
+        assert s.manifest.total_pin_refs() == 0
+        s.recover()
+        assert not s.degraded and s.stats.bg_gave_up == 0
+    keys = list(range(4100)) + list(range(5000, 5040))
+    got = [s.multi_get(keys) for s in stores]
+    assert got[0] == got[1] and got[0][:4100] == want
+    assert got[0][4100:] == [None] * 40
+    assert all(not r["bad_blocks"] for r in stores[0].scrub())
+    for s in stores:
+        s.put(1, b"after")
+        s.flush()
+        assert s.wait_for_quiesce(120)
+        assert s.get(1) == b"after"
+        s.close()
     torch.cuda.synchronize()

@@ -75,8 +75,39 @@ def test_engine_tokens_equal_the_reference_engine(arch):
         for key in ("prefill_tokens", "decoded_tokens", "cache_hits",
                     "batches"):
             assert port.metrics[key] == ref.metrics[key], key
+        # the port's store ran on the reference's knobs: pages inserted on
+        # the scheduler's worker, looked up through the cache and the pin
+        assert port.kv.db.wait_for_quiesce(60) and not port.kv.db.degraded
+        cache = port.kv.stats()["block_cache"]
+        assert set(cache) == set(ref.kv.stats()["block_cache"])
+        assert cache["enabled"] and 0 < cache["pinned_bytes"] <= 2 << 20
+        io = port.kv.stats()["io"]
+        assert io["bg_flushes"] > 0 and io["bg_gave_up"] == 0
     finally:
         ref.close()
+        port.close()
+
+
+def test_store_config_is_the_reference_but_shards():
+    """AutumnKV's store runs the reference's configuration (async
+    compaction on two workers, a 4 MiB cache, a 2 MiB pin), all but
+    ``shards=2``, which waits for the sharded facade."""
+    from repro_torch.kvcache.autumnkv import store_config
+    ref_kv = RefKV(ref_get_smoke("qwen3_4b"), 1, 64)
+    try:
+        want = dataclasses.asdict(ref_kv.db.config)
+    finally:
+        ref_kv.close()
+    got = dataclasses.asdict(store_config())
+    assert want.pop("shards") == 2 and got.pop("shards") == 1
+    for name in ("use_pallas_bloom", "use_pallas_merge"):
+        want.pop(name)
+    assert got == want
+    kv = AutumnKVCache(get_smoke("qwen3_4b"), 1, 64, device="cpu")
+    assert kv.db._scheduler is not None and kv.db.block_cache is not None
+    assert len(kv.db._scheduler._threads) == 2
+    kv.close()
+    assert kv.db._scheduler is None
 
 
 # ------------------------------------ the reference's serving tests, ported
