@@ -8,9 +8,9 @@ Run from the repository root on a machine with a CUDA card:
                           [--src DIR]
 
 ``--phases`` runs a subset of
-kernels,attention,equivalence,db_bench,durability,serve (all by default; a
-subset ends in a {"partial": true} line instead of the kernels and ok
-lines); ``--src`` imports repro_torch from another checkout's src/ (for
+kernels,attention,equivalence,db_bench,subsystems,durability,serve (all by
+default; a subset ends in a {"partial": true} line instead of the kernels
+and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
@@ -44,6 +44,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 then the same on two stores with async compaction, a block
                 cache and a pinned L0 (``equivalence_async``), compared
                 after ``wait_for_quiesce``, cache hits and misses included;
+                then (``equivalence_subsystems``) two stores with range
+                views, paranoid reads, a Telemetry and a same-seed
+                FaultInjector failing every 499th block read: equal view
+                columns, answers (the same calls refused), IOStats, fired
+                counts and event kinds, and the same CorruptionError from a
+                block corrupted by a same-seed injector on each;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
                 write buffer, 10 bits per key), every answer checked; the
@@ -52,6 +58,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 merge and probe launch; then, on the same store, seekrandom
                 (2,000 seeks) and YCSB workload E's scans (2,000 of 1..100
                 entries), every answer checked (the ``range`` line);
+  5b. subsystems — on phase 5's store (loaded here when phase 5 is not
+                asked for): the range view's full and incremental build
+                (s, device bytes, merge launches), phase 5's seeks and
+                scans through it (every answer equal to phase 5's, no
+                fallback); a Telemetry over eight of phase 5's waves (the
+                store's multi_get p50/p99 within one bucket of the host
+                clock; keys/s on and off in turns); the same waves with
+                paranoid reads (keys/s, at most one verify pass per run a
+                wave); faults (a block_read failure injected and cleared; a
+                corrupted block of the deepest run caught and named by a
+                paranoid read and by scrub); then YCSB workload A (2^20
+                operations, zipfian, over 1M keys) on an async store with
+                the online tuner beside an untuned twin: every read checked
+                and equal, knobs in bounds, every actuation at a boundary;
   6. durability — the db_bench load again on LevelDB's background
                 compaction thread, 8 MiB LRU block cache and a 16 MiB pinned
                 L0 (L0 at its trigger): the tree equals phase 5's, the same
@@ -62,7 +82,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 WAL replay and scrub timed; the store kernels must launch
                 from the worker thread, and no job may be retried, given up
                 or leave the store degraded;
-     kernel launches on phases 5 and 6, each store kernel's must be > 0;
+     kernel launches on phases 5, 5b and 6, each store kernel's must be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
                 AutumnKV: three waves of four 512-token requests (cold,
                 warm, mixed), hits, dedup and tokens checked, every kernel
@@ -914,6 +934,100 @@ def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
     return out
 
 
+def guarded(injected, fn, *args):
+    """``("ok", fn(*args))``, or ``("fault", site)`` where an injected
+    fault (exception type ``injected``) refused the call."""
+    try:
+        return ("ok", fn(*args))
+    except injected as e:
+        return ("fault", e.site)
+
+
+def equivalence_subsystems(torch, rt, ops, rng, n_entries: int) -> dict:
+    """Phase 4's third case: a CUDA store and a CPU store with range views,
+    paranoid reads, a Telemetry and a FaultInjector of the same seed armed
+    at ``block_read`` (every 499th candidate read fails), after the same
+    seeded operations: equal view columns, answers (and the same calls
+    refused), IOStats, ``fired`` counts and sequence of event kinds; then
+    the same block corrupted by a same-seed injector on each store, and the
+    same CorruptionError from a paranoid read of it."""
+    def make(device):
+        cfg = rt.LSMConfig(
+            memtable_bytes=64 << 10, base_level_bytes=256 << 10,
+            bits_per_key=10, use_range_views=True, paranoid_checks=True,
+            telemetry=rt.core.Telemetry(),
+            faults=rt.core.FaultInjector(seed=17).fail_every("block_read",
+                                                             499))
+        return rt.LSMStore(cfg, device=device)
+
+    stores = [make("cuda"), make("cpu")]
+    space = n_entries // 2
+    keys = rng.integers(0, space, n_entries, dtype=np.uint64)
+    keys[:5] = [0, 2**32 - 1, 2**63 - 1, 2**63, 2**64 - 1]
+    vals = [bytes([int(k) & 0xFF]) * int(n)
+            for k, n in zip(keys, rng.integers(0, 120, n_entries))]
+    dels = rng.choice(keys, n_entries // 20)
+    starts = np.concatenate([rng.choice(keys, 150), rng.choice(dels, 50),
+                             keys[:5]])
+    lengths = rng.integers(1, 101, starts.size)
+    batches = [rng.integers(0, space * 2, m, dtype=np.uint64).tolist()
+               for m in (1, 700, 20_000)] + [keys[:4096].tolist()]
+    for s in stores:
+        s.put_batch(keys[:space].tolist(), vals[:space])
+        s.delete_batch(dels.tolist())
+        s.flush()
+        s.put_batch(keys[space:].tolist(), vals[space:])
+    fault = rt.core.InjectedFault
+    answers = [[guarded(fault, s.multi_get, b) for b in batches]
+               + [guarded(fault, s.get, int(k)) for k in keys[:64]]
+               + [guarded(fault, s.scan, int(a), int(n))
+                  for a, n in zip(starts, lengths)]
+               + [guarded(fault, s.seek, int(a)) for a in starts]
+               for s in stores]
+    views = [s.refresh_range_view() for s in stores]
+    same_view = all(torch.equal(getattr(views[0], c).cpu(),
+                                getattr(views[1], c))
+                    for c in ("keys", "src", "rows", "live", "blocks"))
+    fired = [dict(s.config.faults.fired) for s in stores]
+    kinds = [[e.kind for e in s.telemetry.trace.dump()] for s in stores]
+    stats = [{k: v for k, v in dataclasses.asdict(s.stats).items()
+              if not k.endswith("_ns")} for s in stores]
+    # a corrupted block: the same one, named by the same error
+    deep = max(i for i, lvl in enumerate(stores[1]._levels) if lvl)
+    raised = []
+    for s in stores:
+        s.config.faults.clear()
+        run = s._levels[deep][0]
+        bid = rt.core.FaultInjector(seed=23).corrupt_run_block(run)
+        lo, hi = torch.searchsorted(run.block_of, torch.tensor(
+            [bid, bid + 1], device=run.block_of.device)).tolist()
+        victims = ops.keys_from_device(run.keys[lo:hi]).tolist()
+        try:
+            s.multi_get(victims)
+            raised.append(None)
+        except rt.core.CorruptionError as e:
+            raised.append((e.block_id, e.run_id == run.run_id, bid))
+    out = dict(phase="equivalence_subsystems", entries=n_entries,
+               view_entries=len(views[0]), view_runs=len(views[0].runs),
+               refused_calls=sum(a[0] == "fault" for a in answers[0]),
+               fired=fired[0], event_kinds=len(kinds[0]),
+               view_scans=stats[0]["view_scans"],
+               same_view=same_view, same_answers=answers[0] == answers[1],
+               same_stats=stats[0] == stats[1], same_fired=fired[0] == fired[1],
+               same_event_kinds=kinds[0] == kinds[1],
+               corruption=raised[0], same_corruption=raised[0] == raised[1])
+    emit(out)
+    ok = ("same_view", "same_answers", "same_stats", "same_fired",
+          "same_event_kinds", "same_corruption")
+    if not all(out[k] for k in ok):
+        raise AssertionError("the CUDA store's subsystems differ from the "
+                             "CPU store's")
+    if not out["refused_calls"] or raised[0] is None or not raised[0][1] \
+            or raised[0][0] != raised[0][2] or not out["view_scans"]:
+        raise AssertionError(f"equivalence_subsystems: {out}")
+    return out
+
+
 # ------------------------------------------------------------ phase 5
 def fill_workload(seed: int, n_entries: int):
     """db_bench fillrandom's keys (distinct u64, in write order) and the 1%
@@ -1080,13 +1194,15 @@ def counting_refills(iterator_module):
 
 
 def range_phase(torch, rt, ops, store, live, deleted, rng,
-                n_seeks: int = 2000, n_scans: int = 2000) -> dict:
+                n_seeks: int = 2000, n_scans: int = 2000,
+                record=None) -> dict:
     """seekrandom (db_bench) and short scans (YCSB workload E: lengths
     uniform in 1..100) on the loaded store; start keys half at live keys,
     a quarter at deleted keys, a quarter uniform over u64.  Every scan is
     held against the next live keys and their values, every seek against
     :func:`seek_oracle` over the runs' keys as they lie on the device and
-    the memtable; 50 more scans run under the profiler."""
+    the memtable; 50 more scans run under the profiler.  ``record`` (a
+    dict) gets the draws and the checked answers, for phase 5b."""
     if not hasattr(store, "scan"):
         return dict(phase="range", skipped="this checkout has no range reads")
 
@@ -1155,6 +1271,10 @@ def range_phase(torch, rt, ops, store, live, deleted, rng,
         emit(out)
         raise AssertionError(f"range reads: {bad_seeks} wrong seeks, "
                              f"{bad_scans} wrong scans")
+    if record is not None:
+        record.update(seek_starts=seek_starts, scan_starts=scan_starts,
+                      lengths=lengths, seeks=got_seeks, scans=got_scans,
+                      prof_starts=prof_starts, prof_lens=prof_lens)
     return out
 
 
@@ -1197,9 +1317,11 @@ DB_BENCH = dict(policy="garnering", T=2.0, c=0.8, memtable_bytes=4 << 20,
 
 
 def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
-                  n_entries: int) -> dict:
+                  n_entries: int, keep=None) -> dict:
     """fillrandom then readrandom at LevelDB's db_bench defaults, then
-    seekrandom and short scans on the same store (``range_phase``)."""
+    seekrandom and short scans on the same store (``range_phase``).
+    ``keep`` (a dict) gets the store, its key sets and the range reads'
+    draws and answers, for phase 5b."""
     cfg = rt.LSMConfig(**DB_BENCH)
     store = rt.LSMStore(cfg)   # cuda:0
     torch.cuda.reset_peak_memory_stats()
@@ -1272,7 +1394,9 @@ def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
     if answers != [user_values(lv) + [None] * (wave // 2) for lv, _ in waves]:
         raise AssertionError("wrong answers in the profiled waves")
     probe_sizes = probe_size_report(ops)
-    ranges = range_phase(torch, rt, ops, store, live, np.sort(deleted), rng)
+    record = {}
+    ranges = range_phase(torch, rt, ops, store, live, np.sort(deleted), rng,
+                         record=record)
     run_bytes = sum(t.numel() * t.element_size()
                     for lvl in store._levels for r in lvl
                     for t in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
@@ -1307,6 +1431,395 @@ def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
         tree_digest=digest, memtable_entries=len(store.memtable))
     emit(out)
     emit(ranges)
+    if keep is not None:
+        keep.update(store=store, keys=keys, deleted=deleted, live=live,
+                    sorted_keys=sorted_keys, range_record=record,
+                    range_line=ranges)
+    return out
+
+
+# ------------------------------------------------------------ phase 5b
+def storage_bytes(tensors, exclude=()) -> int:
+    """Device bytes of the storages of ``tensors``, each counted once,
+    leaving out the storages of ``exclude``."""
+    skip = {t.untyped_storage().data_ptr() for t in exclude}
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def nearest_rank(samples, p: float) -> float:
+    """The histogram's percentile definition (nearest rank) on samples."""
+    s = sorted(samples)
+    return s[max(1, math.ceil(len(s) * p / 100.0)) - 1]
+
+
+def timed_waves(torch, store, waves, modes, set_mode) -> dict:
+    """Each wave once in each mode, the modes' order alternating from wave
+    to wave; every answer checked.  Host seconds by mode."""
+    secs = {m: [] for m in modes}
+    for w, (q, want) in enumerate(waves):
+        keys = q.tolist()       # outside the clock, as outside the span
+        for m in (modes if w % 2 == 0 else modes[::-1]):
+            set_mode(m)
+            t = time.perf_counter()
+            got = store.multi_get(keys)
+            secs[m].append(time.perf_counter() - t)
+            if got != want:
+                raise AssertionError(f"wave {w} ({m}): "
+                                     f"{sum(g != x for g, x in zip(got, want))}"
+                                     f" wrong answers")
+    return secs
+
+
+def zipf_items(rng, n_items: int, n: int, theta: float = 0.99):
+    """``n`` draws of YCSB's zipfian request distribution (constant 0.99)
+    over ``n_items`` items, scrambled by a seeded permutation, as YCSB's
+    scrambled zipfian spreads the hot items over the key space."""
+    w = 1.0 / np.arange(1, n_items + 1, dtype=np.float64) ** theta
+    cdf = np.cumsum(w)
+    ranks = np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1]),
+                       n_items - 1)
+    return rng.permutation(n_items)[ranks]
+
+
+def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
+               n_ops: int = 1 << 20, batch: int = 4096,
+               interval_ops: int = 16_384):
+    """YCSB workload A (50% reads, 50% updates, zipfian) over a 1M-key
+    load on a tuned async store (phase 6's knobs, a Telemetry and an
+    OnlineTuner) and an untuned twin: every read checked against the
+    written values and equal between the two; knobs within KNOB_BOUNDS,
+    every actuation with the scheduler idle.  Reads and updates go in
+    batches of ``batch`` operations (a batch's reads, then its updates),
+    values 100 bytes (YCSB ``fieldcount=1``, ``fieldlength=100``).
+    Returns the phase line's fields and the gates that failed."""
+    cfg = rt.LSMConfig(**DB_BENCH, async_compaction=True,
+                       compaction_workers=1, cache_bytes=8 << 20,
+                       cache_policy="lru", pin_l0_bytes=16 << 20)
+    tel = rt.core.Telemetry()
+    # a tick every 16,384 writes (8 batches): 16 samples a window, so the
+    # tuner decides on every one
+    tun = rt.core.OnlineTuner(interval_ops=interval_ops, min_window_ops=16)
+    tuned = rt.LSMStore(dataclasses.replace(cfg, telemetry=tel, tuner=tun))
+    twin = rt.LSMStore(cfg)
+    actuations, tick_ms = [], []
+    actuators, tick = tuned._tuning_actuators, tun.tick
+
+    def recorded_actuators():
+        return {k: (get, lambda v, k=k, put=put: (
+            actuations.append((k, v, tuned._scheduler.idle())), put(v)))
+            for k, (get, put) in actuators().items()}
+
+    def timed_tick(store):
+        t = time.perf_counter()
+        try:
+            return tick(store)
+        finally:
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+
+    tuned._tuning_actuators, tun.tick = recorded_actuators, timed_tick
+    rng = np.random.default_rng([seed, 10])
+    keys = np.unique(rng.integers(0, 2**64 - 1, n_keys + n_keys // 100,
+                                  dtype=np.uint64))
+    keys = rng.permutation(keys)[:n_keys]
+    salt = np.zeros(n_keys, dtype=np.int64)
+    t = time.perf_counter()
+    for s in (tuned, twin):
+        for i in range(0, n_keys, 250_000):
+            kc = keys[i:i + 250_000]
+            s.put_batch(kc.tolist(), salted_values(kc, 0))
+        s.flush()
+        quiesce(s)
+    load_s = time.perf_counter() - t
+    items = zipf_items(rng, n_keys, n_ops)
+    is_read = rng.random(n_ops) < 0.5
+    secs = {"tuned": 0.0, "twin": 0.0}
+    wrong = unequal = 0
+    for b, i in enumerate(range(0, n_ops, batch)):
+        it, rd = items[i:i + batch], is_read[i:i + batch]
+        rk, uk = keys[it[rd]], keys[it[~rd]]
+        want = salted_values(rk, salt[it[rd]])
+        vals = salted_values(uk, 1 + b % 255)
+        got = {}
+        for name, s in (("tuned", tuned), ("twin", twin)):
+            t = time.perf_counter()
+            got[name] = s.multi_get(rk.tolist())
+            s.put_batch(uk.tolist(), vals)
+            secs[name] += time.perf_counter() - t
+        salt[it[~rd]] = 1 + b % 255
+        wrong += sum(g != w for g, w in zip(got["tuned"], want))
+        unequal += sum(a != c for a, c in zip(got["tuned"], got["twin"]))
+        if b % 64 == 63:
+            quiesce(tuned)       # a drained pipeline is a tuning boundary
+    for s in (tuned, twin):
+        s.flush()
+        quiesce(s)
+    final = [checked_reads(s, keys, salted_values(keys, salt))
+             for s in (tuned, twin)]
+    bounds = rt.core.KNOB_BOUNDS
+    out_of_bounds = [(k, v) for step in tun.steps for k, v in step.knobs.items()
+                     if not bounds[k][0] - 1e-9 <= v <= bounds[k][1] + 1e-9]
+    steps_ev = sum(1 for e in tel.trace.dump() if e.kind == "tuner_step")
+    health = [dict(degraded=s.degraded, bg_retries=s.stats.bg_retries,
+                   bg_gave_up=s.stats.bg_gave_up) for s in (tuned, twin)]
+    for s in (tuned, twin):
+        s.close()
+    out = dict(
+        keys=n_keys, ops=n_ops, batch=batch, load_s_both=load_s,
+        ops_per_s={k: n_ops / v for k, v in secs.items()},
+        ticks=tun.ticks, decisions=len(tun.steps), tuner_step_events=steps_ev,
+        knob_trajectory=tun.knob_trajectory(),
+        tick_host_ms=dict(mean=float(np.mean(tick_ms)) if tick_ms else None,
+                          max=float(max(tick_ms)) if tick_ms else None,
+                          n=len(tick_ms)),
+        actuations=len(actuations),
+        actuations_not_idle=sum(1 for a in actuations if not a[2]),
+        out_of_bounds=out_of_bounds, wrong_reads=int(wrong),
+        unequal_reads=int(unequal), final_wrong=final,
+        final_policy=dict(T=tuned.policy.T, c=tuned.policy.c),
+        health=health)
+    bad = []
+    if wrong or unequal or any(final):
+        bad.append("wrong or unequal reads")
+    if not tun.steps or steps_ev != len(tun.steps):
+        bad.append("no tuner decisions")
+    if out_of_bounds or out["actuations_not_idle"]:
+        bad.append("knob out of bounds or actuated off a boundary")
+    if any(h != dict(degraded=False, bg_retries=0, bg_gave_up=0)
+           for h in health):
+        bad.append("background failures")
+    return out, bad
+
+
+def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
+    """Phase 5b, on phase 5's store (10M entries, 5 levels): range views
+    (full and incremental build; phase 5's seeks and scans through the
+    view, every answer equal to phase 5's), telemetry (the store's own
+    multi_get percentiles beside the host clock; keys/s with it on and
+    off), paranoid reads (answers, keys/s, verify passes per run), faults
+    (an injected block_read failure; a corrupted block caught and named),
+    and the online tuner on YCSB workload A beside an untuned twin."""
+    from repro_torch.core import run as run_mod
+    from repro_torch.core.telemetry import bucket_of
+    t_phase = time.perf_counter()
+    store, rec = ctx["store"], ctx["range_record"]
+    for obj, name in ((store, "_apply"), (store.memtable, "to_run")):
+        vars(obj).pop(name, None)      # phase 5's timing wrappers
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bad = []
+    # ---- views: the full build
+    store.config.use_range_views = True
+    t = time.perf_counter()
+    view = store.refresh_range_view()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    k2_full = ops.launch_counts()["merge_pair"]
+    run_cols = [c for lvl in store._levels for r in lvl
+                for c in (r.keys, r.block_of)]
+    view_bytes = storage_bytes(
+        [view.keys, view.src, view.rows, view.live, view.blocks]
+        + [c for cols in store._view_cache.values() for c in cols],
+        exclude=run_cols)
+    # phase 5's seeks and scans, through the view
+    st0 = store.stats
+    t = time.perf_counter()
+    got_seeks = [store.seek(int(a)) for a in rec["seek_starts"].tolist()]
+    seek_s = time.perf_counter() - t
+    st1 = store.stats
+    scan_ms, got_scans = [], []
+    for a, n in zip(rec["scan_starts"].tolist(), rec["lengths"].tolist()):
+        t = time.perf_counter()
+        got_scans.append(store.scan(a, n))
+        scan_ms.append((time.perf_counter() - t) * 1e3)
+    per_scan = store.stats.delta(st1)
+    wrong_seeks = sum(g != w for g, w in zip(got_seeks, rec["seeks"]))
+    wrong_scans = sum(g != w for g, w in zip(got_scans, rec["scans"]))
+    prof = profile_window(torch, lambda: [
+        store.scan(int(a), int(n))
+        for a, n in zip(rec["prof_starts"], rec["prof_lens"])])
+    copies = prof.pop("copies", {})
+    n_scans = len(scan_ms)
+    line5 = ctx["range_line"]
+    # ---- the incremental build after one more flush, under telemetry
+    tel = rt.core.Telemetry()
+    store.config.telemetry = tel
+    k2 = ops.launch_counts()["merge_pair"]
+    t = time.perf_counter()
+    store.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    t = time.perf_counter()
+    view2 = store.refresh_range_view()
+    torch.cuda.synchronize()
+    inc_s = time.perf_counter() - t
+    recheck = [store.scan(int(a), int(n)) for a, n in zip(
+        rec["scan_starts"][:200].tolist(), rec["lengths"][:200].tolist())]
+    wrong_after_flush = sum(g != w for g, w in zip(recheck, rec["scans"]))
+    views = dict(
+        phase="subsystems", part="views", entries=len(view),
+        runs=len(view.runs), full_build_s=build_s,
+        full_build_merge_pair_launches=k2_full,
+        view_device_bytes=view_bytes,
+        run_device_bytes=storage_bytes(
+            [c for lvl in store._levels for r in lvl
+             for c in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
+                       r.fence_keys, r.block_crcs, r.bloom.bits)]),
+        incremental=dict(flush_s=flush_s, build_s=inc_s,
+                         levels_rebuilt=view2.levels_built,
+                         levels=sum(1 for lvl in store._levels if lvl),
+                         runs=len(view2.runs),
+                         merge_pair_launches=ops.launch_counts()
+                         ["merge_pair"] - k2,
+                         rescanned=len(recheck),
+                         wrong=wrong_after_flush),
+        seeks=len(got_seeks), seeks_per_s=len(got_seeks) / seek_s,
+        seek_ms_mean=seek_s / len(got_seeks) * 1e3,
+        scans=n_scans, scans_per_s=n_scans / (sum(scan_ms) / 1e3),
+        scan_ms_p50=float(np.percentile(scan_ms, 50)),
+        scan_ms_p99=float(np.percentile(scan_ms, 99)),
+        per_scan=dict(blocks_read=per_scan.blocks_read / n_scans,
+                      runs_touched=per_scan.runs_touched_range / n_scans),
+        seek_stats={k: v for k, v in dataclasses.asdict(
+            st1.delta(st0)).items() if v},
+        view_scans=per_scan.view_scans, view_fallbacks=(
+            per_scan.view_fallbacks + st1.delta(st0).view_fallbacks),
+        profile_50_scans=prof,
+        d2h_copies_per_scan=sum(c for n, c in copies.items()
+                                if "DtoH" in n) / 50,
+        h2d_copies_per_scan=sum(c for n, c in copies.items()
+                                if "HtoD" in n) / 50,
+        memtable_entries_at_scans=line5.get("memtable_entries"),
+        phase5_range={k: line5.get(k) for k in (
+            "seeks_per_s", "scans_per_s", "scan_ms_p50", "scan_ms_p99",
+            "per_scan", "d2h_copies_per_scan")},
+        wrong_seeks=wrong_seeks, wrong_scans=wrong_scans)
+    emit(views)
+    if wrong_seeks or wrong_scans or wrong_after_flush \
+            or views["view_fallbacks"] or not views["view_scans"]:
+        bad.append("view answers differ from phase 5's, or fell back")
+    # ---- telemetry: eight of phase 5's waves, on and off in turns
+    waves = list(itertools.islice(read_waves(
+        seed, ctx["sorted_keys"], ctx["live"], ctx["deleted"]), 1, 9))
+    secs = timed_waves(torch, store, waves, ("on", "off"), lambda m: setattr(
+        store.config, "telemetry", tel if m == "on" else None))
+    store.config.telemetry = None
+    hist = tel.histogram("multi_get")
+    wave_keys = sum(q.size for q, _ in waves)
+    pct = {}
+    for p in (50, 99):
+        store_ns, host_ns = hist.percentile(p), nearest_rank(secs["on"], p) \
+            * 1e9
+        pct[f"p{p}"] = dict(store_ms=store_ns / 1e6, host_ms=host_ns / 1e6,
+                            bucket_gap=bucket_of(int(host_ns))
+                            - bucket_of(int(store_ns)))
+    kinds = {}
+    for e in tel.trace.dump():
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    telemetry = dict(
+        phase="subsystems", part="telemetry", waves=len(waves),
+        multi_get=pct, store_multi_get_samples=hist.n,
+        keys_per_s_on=wave_keys / sum(secs["on"]),
+        keys_per_s_off=wave_keys / sum(secs["off"]),
+        event_counts=kinds,
+        spans={op: dict(count=d["count"], p50_ms=d["p50_ns"] / 1e6,
+                        max_ms=d["max_ns"] / 1e6)
+               for op, d in tel.summary().items()})
+    emit(telemetry)
+    if hist.n != len(waves) or any(abs(v["bucket_gap"]) > 1
+                                   for v in pct.values()):
+        bad.append("the store's multi_get histogram disagrees with the host")
+    # ---- paranoid reads: the same waves, plain and paranoid in turns
+    runs = sum(1 for lvl in store._levels for r in lvl if len(r))
+    passes = dict(run_mod.VERIFY_PASSES)
+    secs = timed_waves(torch, store, waves, ("plain", "paranoid"),
+                       lambda m: setattr(store.config, "paranoid_checks",
+                                         m == "paranoid"))
+    store.config.paranoid_checks = False
+    batch_passes = run_mod.VERIFY_PASSES["batch"] - passes["batch"]
+    paranoid = dict(
+        phase="subsystems", part="paranoid", waves=len(waves), runs=runs,
+        keys_per_s_plain=wave_keys / sum(secs["plain"]),
+        keys_per_s_paranoid=wave_keys / sum(secs["paranoid"]),
+        wave_ms_p50=dict(plain=float(np.percentile(secs["plain"], 50) * 1e3),
+                         paranoid=float(np.percentile(secs["paranoid"], 50)
+                                        * 1e3)),
+        verify_passes_per_wave=batch_passes / len(waves),
+        verify_passes_per_run_per_wave=batch_passes / len(waves) / runs,
+        single_block_verifies=run_mod.VERIFY_PASSES["block"]
+        - passes["block"])
+    emit(paranoid)
+    if paranoid["verify_passes_per_wave"] > runs \
+            or paranoid["single_block_verifies"]:
+        bad.append("paranoid verify is not one pass per run per wave")
+    # ---- faults, last: they mutate the store
+    f = rt.core.FaultInjector(seed)
+    store.config.faults = f.fail_every("block_read", 10_000)
+    store.config.telemetry = tel
+    q, want = waves[0]
+    injected = guarded(rt.core.InjectedFault, store.multi_get, q.tolist())[1]
+    if not isinstance(injected, str):
+        injected = None        # answered: the fault never fired
+    fired = dict(f.fired)
+    f.clear()
+    q, want = waves[1]
+    after_clear_ok = store.multi_get(q.tolist()) == want
+    deep = max(i for i, lvl in enumerate(store._levels) if lvl)
+    run = store._levels[deep][0]
+    bid = f.corrupt_run_block(run)
+    lo, hi = torch.searchsorted(run.block_of, torch.tensor(
+        [bid, bid + 1], device=run.block_of.device)).tolist()
+    victims = ops.keys_from_device(run.keys[lo:hi]).tolist()
+    store.config.paranoid_checks = True
+    try:
+        store.multi_get(victims)
+        caught = None
+    except rt.core.CorruptionError as e:
+        caught = (e.run_id, e.block_id)
+    store.config.paranoid_checks = False
+    t = time.perf_counter()
+    report = store.scrub()
+    scrub_s = time.perf_counter() - t
+    reported = [(r["run_id"], r["bad_blocks"]) for r in report
+                if r["bad_blocks"]]
+    faults = dict(
+        phase="subsystems", part="faults", fail_every_block_read=10_000,
+        injected=injected, fired=fired, next_wave_correct=after_clear_ok,
+        corrupted=dict(level=deep, run_entries=len(run), block=bid,
+                       block_entries=hi - lo),
+        corruption_caught=caught, scrub_reported=reported, scrub_s=scrub_s,
+        corruption_events=sum(1 for e in tel.trace.dump()
+                              if e.kind == "corruption"))
+    emit(faults)
+    if injected != "block_read" or fired != {"block_read": 1} \
+            or not after_clear_ok or caught != (run.run_id, bid) \
+            or reported != [(run.run_id, [bid])]:
+        bad.append("faults")
+    store_launches = ops.launch_counts()
+    ctx.clear()
+    del store, view, view2, run
+    torch.cuda.empty_cache()
+    # ---- the online tuner on YCSB workload A
+    tuner, tuner_bad = tuner_part(torch, rt, seed)
+    emit(dict(phase="subsystems", part="tuner", **tuner))
+    bad += tuner_bad
+    launches = ops.launch_counts()
+    out = dict(phase="subsystems", part="summary",
+               s=time.perf_counter() - t_phase,
+               launches={k: launches[k] for k in STORE_KERNELS},
+               launches_on_phase5_store={k: store_launches[k]
+                                         for k in STORE_KERNELS},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    if not all(launches[k] for k in STORE_KERNELS):
+        bad.append(f"store kernels not launched: {launches}")
+    if bad:
+        raise AssertionError(f"subsystems phase failed: {bad}")
     return out
 
 
@@ -1340,10 +1853,12 @@ def launches_by_thread(bloom, merge):
             setattr(mod, attr, saved[name])
 
 
-def salted_values(keys: np.ndarray, salt: int, width: int = 100) -> list:
+def salted_values(keys: np.ndarray, salt, width: int = 100) -> list:
     """A value that names its key (8 little-endian bytes) and a write
-    generation ``salt`` (the other bytes), unlike :func:`user_values`."""
-    mat = np.full((keys.size, width), salt, dtype=np.uint8)
+    generation ``salt`` (the other bytes; one for every key, or an array of
+    one per key), unlike :func:`user_values`."""
+    mat = np.empty((keys.size, width), dtype=np.uint8)
+    mat[:] = np.asarray(salt, dtype=np.uint8).reshape(-1, 1)
     mat[:, :8] = keys.astype("<u8").view(np.uint8).reshape(-1, 8)
     flat = mat.tobytes()
     return [flat[i:i + width] for i in range(0, len(flat), width)]
@@ -1736,8 +2251,8 @@ def serve_equivalence(torch, dev, seed: int) -> dict:
     return out
 
 
-PHASES = ("kernels", "attention", "equivalence", "db_bench", "durability",
-          "serve")
+PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
+          "durability", "serve")
 
 
 def main() -> int:
@@ -1808,16 +2323,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         async_equivalence(torch, rt, ops, rng, args.equiv_entries)
         torch.cuda.empty_cache()
-    launches, by_path, phase5 = {}, {}, None
-    if "db_bench" in phases:
+        equivalence_subsystems(torch, rt, ops, rng, args.equiv_entries // 4)
+        torch.cuda.empty_cache()
+    launches, by_path, phase5, ctx = {}, {}, None, {}
+    if "db_bench" in phases or "subsystems" in phases:
+        # phase 5b runs on phase 5's store: alone, it loads it itself
         phase5 = dbbench_phase(torch, rt, ops, bloom, rng, args.seed,
-                               args.entries)
+                               args.entries, keep=ctx)
         launches = ops.launch_counts()
         by_path["db_bench"] = {k: launches[k] for k in STORE_KERNELS}
         idle = [k for k in STORE_KERNELS if launches[k] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on phase 5: {idle}")
-        torch.cuda.empty_cache()
+    if "subsystems" in phases:
+        by_path["subsystems"] = subsystems_phase(torch, rt, ops, args.seed,
+                                                 ctx)["launches"]
+    ctx.clear()
+    torch.cuda.empty_cache()
     if "durability" in phases:
         by_path["durability"] = durability_phase(
             torch, rt, ops, bloom, merge, args.seed, args.entries,

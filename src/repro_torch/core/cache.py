@@ -68,6 +68,9 @@ class BlockCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # Optional Telemetry: every 512th eviction emits a "cache_pressure"
+        # event (the trace's mutex is a leaf lock, safe under this one's).
+        self.telemetry = None
 
     # -------------------------------------------------------------- accounting
     @property
@@ -182,6 +185,11 @@ class BlockCache:
                 self._entries.move_to_end(key)
         self._bytes -= self._entries.pop(key)[0]
         self.evictions += 1
+        tel = self.telemetry
+        if tel is not None and self.evictions % 512 == 0:
+            tel.emit("cache_pressure", evictions=self.evictions,
+                     charged_bytes=self._bytes,
+                     capacity_bytes=self.capacity_bytes)
 
     def resize(self, capacity_bytes: int) -> None:
         """Set a new capacity and evict down to it; surviving entries keep

@@ -26,6 +26,25 @@ references.  ``cache_bytes``/``pin_l0_bytes`` attach the reference's block
 cache and pinned L0 (``core.cache``), an accounting model: the runs stay on
 the device whatever it decides.
 
+The reference's store subsystems ride on the same tree:
+
+* ``use_range_views``: a cross-run range view (``core.view``) over the
+  device runs, rebuilt off the write path (on the worker in async mode,
+  by the first read in sync mode), serves ``scan`` and ``seek``; a stale
+  view falls back to the merging iterator.  Freshness is the identity of
+  the published ``_levels`` list, which every install replaces.
+* ``faults`` (a ``FaultInjector``) fires at the durability and I/O sites
+  (``wal_append``, ``wal_fsync``, ``flush_write``, ``compaction_merge``,
+  ``manifest_fsync``, ``block_read`` and the two migration sites) and
+  dirties ``crash()``; ``paranoid_checks`` verifies every block a point
+  read or a seek touches, a point-read batch's blocks in one device pass.
+* ``telemetry`` records per-op latency histograms and lifecycle events
+  (``core.telemetry``); it adds no device synchronization.
+* ``tuner`` (an ``OnlineTuner``) hill-climbs ``c``, ``T``, the cache/pin
+  split and ``slowdown_trigger`` from the telemetry, applying changes only
+  at compaction-chain or quiesce boundaries (``apply_tuning``).
+Each is off by default, and then costs one ``is None`` test per site.
+
 The store's device decides how the three accelerator lanes run: on CUDA
 the bloom probe, the bloom build and the compaction pair merge launch the
 hand-written kernels of ``repro_torch/csrc``, and a failure raises; on the
@@ -36,6 +55,7 @@ absent; only an explicit ``device="cpu"`` runs on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from typing import Iterable, List, Optional, Sequence, Tuple
@@ -47,14 +67,17 @@ from ..kernels import ops
 from .bloom import allocate_fprs, bits_for_fpr
 from .cache import BlockCache, PinnedLevelManager
 from .faults import CorruptionError, StoreDegradedError
-from .iterator import MergingIterator
+from .iterator import MergingIterator, combined_mem_items
 from .manifest import Manifest, RunStorage, Version
 from .memtable import ImmutableMemtable, Memtable, WriteAheadLog
 from .policy import CompactionTask, MergePolicy, make_policy
-from .run import SortedRun, merge_runs, seek_batch
+from .run import SortedRun, build_run, merge_runs, seek_batch
 from .scheduler import CompactJob, CompactionScheduler, FlushJob
+from .telemetry import Telemetry
+from .tuner import OnlineTuner, TunerStep
 from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, TOMBSTONE_LEN, IOStats,
                     StatsHub)
+from .view import RangeView, build_range_view
 
 # Soft write-pressure delay: sleep(0) yields the GIL and the CPU slice to
 # the compaction workers, the point of the soft trigger (the reference's).
@@ -67,10 +90,11 @@ class LSMConfig:
 
     The reference's ``use_pallas_bloom``/``use_pallas_merge`` switches are
     gone: the store's device decides which lane runs (kernels on CUDA,
-    their plain versions on the CPU).  The fields from ``shards`` down keep
-    the reference's names and defaults, but only their defaults are
-    supported: ``LSMStore`` raises ``NotImplementedError`` for any other
-    value rather than ignore it.
+    their plain versions on the CPU).  The sharded facade's fields
+    (``shards``, ``shard_splitters``, ``rebalance_interval_ops``,
+    ``rebalance_ratio``) keep the reference's names and defaults, but only
+    their defaults are supported: ``LSMStore`` raises
+    ``NotImplementedError`` for any other value rather than ignore it.
     """
 
     policy: str = "garnering"
@@ -102,21 +126,31 @@ class LSMConfig:
     bg_max_retries: int = 2             # background job retries (bounded
                                         # backoff) before the store degrades
                                         # read-only
-    # not supported by this port yet: each must stay at its default
+    use_range_views: bool = False       # cross-run range views serve scan
+                                        # and seek (core.view); the merging
+                                        # iterator stays the stale-view
+                                        # fallback and the oracle
+    telemetry: Optional[Telemetry] = None
+                                        # latency histograms + event trace;
+                                        # None: one `is None` test per site
+    paranoid_checks: bool = False       # verify the checksum of every block
+                                        # a point read or seek touches;
+                                        # recovery scrubs regardless
+    faults: Optional[object] = None     # a FaultInjector: injected failures
+                                        # at the durability/IO sites
+    tuner: Optional[OnlineTuner] = None
+                                        # online knob tuning at boundaries
+                                        # (needs telemetry to sense)
+    # the sharded facade's (not supported by this port yet: each must stay
+    # at its default)
     shards: int = 1
-    use_range_views: bool = False
     shard_splitters: Optional[Tuple[int, ...]] = None
-    telemetry: Optional[object] = None
     rebalance_interval_ops: int = 0
     rebalance_ratio: float = 2.0
-    paranoid_checks: bool = False
-    faults: Optional[object] = None
-    tuner: Optional[object] = None
 
 
-_UNSUPPORTED = ("shards", "use_range_views", "shard_splitters", "telemetry",
-                "rebalance_interval_ops", "rebalance_ratio",
-                "paranoid_checks", "faults", "tuner")
+_UNSUPPORTED = ("shards", "shard_splitters", "rebalance_interval_ops",
+                "rebalance_ratio")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,6 +204,18 @@ class LSMStore:
         # installs and snapshot releases.
         self._imm: List[ImmutableMemtable] = []
         self._maint_lock = threading.Lock()
+        # Online tuning: the tuner is cached on the store so the per-write
+        # check is one `is None` test; bind() makes this store its owner.
+        self._tuner = self.config.tuner
+        self._tune_ops = 0
+        self._tune_armed = False
+        if self._tuner is not None:
+            self._tuner.bind(self)
+        # The range view indexes one published ``_levels`` list object;
+        # ``_view_cache`` keeps per-level columns by run-id tuple, so a
+        # rebuild re-merges only the levels whose runs changed.
+        self._range_view: Optional[RangeView] = None
+        self._view_cache: dict = {}
         self._scheduler: Optional[CompactionScheduler] = None
         if self.config.async_compaction:
             self._scheduler = CompactionScheduler(
@@ -186,6 +232,10 @@ class LSMStore:
         """Merged view of every thread's counter shard (a fresh IOStats)."""
         return self._stats.merged()
 
+    @property
+    def telemetry(self) -> Optional[Telemetry]:
+        return self.config.telemetry
+
     # ------------------------------------------------------ degraded mode
     @property
     def degraded(self) -> bool:
@@ -198,12 +248,40 @@ class LSMStore:
         job exhausts its retry budget)."""
         if self._degraded is None:
             self._degraded = exc
+            tel = self.config.telemetry
+            if tel is not None:
+                tel.emit("degraded", error=repr(exc))
 
     def _raise_degraded(self) -> None:
         raise StoreDegradedError(
             "store is read-only after persistent background failure; "
             "reads keep serving — crash()+recover() to restore writes"
         ) from self._degraded
+
+    def _span(self, op: str, fn, *args):
+        """``fn(*args)``, its latency recorded in the ``op`` histogram when
+        telemetry is on (one ``is None`` test when it is off)."""
+        tel = self.config.telemetry
+        if tel is None:
+            return fn(*args)
+        t0 = time.perf_counter_ns()
+        out = fn(*args)
+        tel.record(op, time.perf_counter_ns() - t0)
+        return out
+
+    def _wal_fsync(self, st: IOStats) -> None:
+        """fsync the active WAL: the one helper every durability point
+        uses, so the ``wal_fsync`` fault site and histogram see them all."""
+        f = self.config.faults
+        if f is not None:
+            f.check("wal_fsync")
+        tel = self.config.telemetry
+        if tel is None:
+            self.wal.fsync(st)
+            return
+        t0 = time.perf_counter_ns()
+        self.wal.fsync(st)
+        tel.record("wal_fsync", time.perf_counter_ns() - t0)
 
     # ------------------------------------------------------------- cache
     def configure_cache(self, cache_bytes: int, pin_l0_bytes: int = 0,
@@ -220,8 +298,9 @@ class LSMStore:
             self.block_cache = None
             self.pinned_l0 = None
             return
-        self.attach_cache(BlockCache(cache_bytes, self.config.cache_policy),
-                          pin_l0_bytes)
+        cache = BlockCache(cache_bytes, self.config.cache_policy)
+        cache.telemetry = self.config.telemetry
+        self.attach_cache(cache, pin_l0_bytes)
 
     def attach_cache(self, cache, pin_l0_bytes: int = 0) -> None:
         """Attach an externally owned cache (anything speaking the
@@ -247,20 +326,28 @@ class LSMStore:
 
     # ------------------------------------------------------------- writes
     def put(self, key: int, value: bytes):
-        self._write(key, value)
+        self._span("put", self._write, key, value)
+        if self._tuner is not None:
+            self._maybe_tune(1)
 
     def delete(self, key: int):
-        self._write(key, None)
+        self._span("put", self._write, key, None)
+        if self._tuner is not None:
+            self._maybe_tune(1)
 
     def _write(self, key: int, value: Optional[bytes]):
         if self._degraded is not None:
             self._raise_degraded()
+        f = self.config.faults
+        if f is not None:
+            f.check("wal_append")  # before any mutation: a failed append
+                                   # leaves no partial record anywhere
         st = self._stats.local()
         self._seq += 1
         self.wal.append(1 if value is None else 0, key, self._seq,
                         value or b"", st)
         if self.config.wal_fsync_every_write:
-            self.wal.fsync(st)
+            self._wal_fsync(st)
         self.memtable.put(int(key), self._seq, value)
         if self.memtable.is_full():
             self._on_memtable_full()
@@ -274,14 +361,18 @@ class LSMStore:
         """
         if isinstance(values, (bytes, bytearray)):
             values = [bytes(values)] * len(keys)
-        self._write_batch(zip(keys, values))
+        self._span("put_batch", self._write_batch, zip(keys, values))
+        if self._tuner is not None:
+            self._maybe_tune(len(keys))
 
     def delete_batch(self, keys) -> None:
         """Batched deletes: semantically ``[delete(k) for k in keys]``."""
-        self._write_batch((k, None) for k in keys)
+        self.write_batch((k, None) for k in keys)
 
     def write_batch(self, ops_: Iterable[Tuple[int, Optional[bytes]]]) -> None:
-        self._write_batch(ops_)
+        self._span("write_batch", self._write_batch, ops_)
+        if self._tuner is not None:
+            self._maybe_tune(1)
 
     def _write_batch(self, ops_: Iterable[Tuple[int, Optional[bytes]]]) -> None:
         """Batched puts + deletes (value=None), the vectorized ingest lane.
@@ -303,6 +394,7 @@ class LSMStore:
             return
         if self._degraded is not None:
             self._raise_degraded()
+        faults = self.config.faults
         st = self._stats.local()
         keys_l, vals_l = zip(*pairs)
         keys_l = list(map(int, keys_l))
@@ -320,13 +412,15 @@ class LSMStore:
             j = max(i + 1,
                     int(np.searchsorted(cum, base + room, side="left")))
             chunk_vals = vals_l[i:j]
+            if faults is not None:
+                faults.check("wal_append")  # per chunk, before mutation
             first_seq = self._seq + 1
             self._seq += j - i
             self.wal.append_batch_cols(
                 chunk_vals, keys_arr[i:j], ops_arr[i:j], vlens[i:j],
                 first_seq, st)
             if self.config.wal_fsync_every_write:
-                self.wal.fsync(st)
+                self._wal_fsync(st)
             self.memtable.put_batch(keys_l[i:j], chunk_vals, first_seq,
                                     added=int(cum[j - 1] - base))
             if self.memtable.is_full():
@@ -335,7 +429,7 @@ class LSMStore:
 
     def fsync_wal(self) -> None:
         """Explicit durability barrier on the active WAL."""
-        self.wal.fsync(self._stats.local())
+        self._wal_fsync(self._stats.local())
 
     def _on_memtable_full(self):
         """Full write buffer: flush inline (sync) or rotate and enqueue
@@ -363,16 +457,30 @@ class LSMStore:
         if len(self._levels[0]) >= self.config.l0_stop_writes_trigger:
             st.write_stalls += 1
             self._compact_until_quiet()
-        self.wal.fsync(st)
+        tel = self.config.telemetry
+        t0 = tok = 0
+        if tel is not None:
+            t0 = time.perf_counter_ns()
+            tok = tel.emit("flush_start", entries=len(self.memtable))
+        self._wal_fsync(st)
+        f = self.config.faults
+        if f is not None:
+            f.check("flush_write")
         run = self.memtable.to_run(self._bits_for_level(0), st, self.device)
         if len(run):
             levels = [list(lvl) for lvl in self._levels]
             levels[0].append(run)  # newest last
             self._levels = levels
             self._commit()
-        # released only after the manifest commit, as the reference does
+        # released only after the manifest commit, as the reference does: a
+        # failed manifest fsync leaves the records in the fsynced WAL
         self.memtable.clear()
         self.wal.truncate()
+        if tel is not None:
+            dur = time.perf_counter_ns() - t0
+            tel.record("flush", dur)
+            tel.emit("flush_end", token=tok, entries=len(run),
+                     t0=t0, dur_ns=dur)
         self._compact_until_quiet()
 
     # ------------------------------------------------- async rotation path
@@ -384,7 +492,7 @@ class LSMStore:
         if len(self.memtable) == 0:
             return
         self._throttle()
-        self.wal.fsync(self._stats.local())
+        self._wal_fsync(self._stats.local())
         imm = ImmutableMemtable(self.memtable, self.wal)
         with self._scheduler.lock:
             self._imm = self._imm + [imm]   # copy-on-write: readers hold refs
@@ -412,18 +520,30 @@ class LSMStore:
         ``IOStats.stall_ns``."""
         cfg = self.config
         st = self._stats.local()
+        tel = cfg.telemetry
         depth = len(self._imm) + len(self._levels[0])
         t0 = time.perf_counter_ns()
         if cfg.stall_trigger > 0 and depth >= cfg.stall_trigger:
             st.write_stalls += 1
+            tok = tel.emit("stall_enter", depth=depth) if tel is not None \
+                else 0
             sched = self._scheduler
             sched.wait_until(
                 lambda: sched.idle()
                 or (len(self._imm) + len(self._levels[0]))
                 < cfg.stall_trigger)
+            dt = time.perf_counter_ns() - t0
+            if tel is not None:
+                tel.record("stall", dt)
+                tel.emit("stall_exit", token=tok, depth=depth,
+                         t0=t0, dur_ns=dt)
         elif cfg.slowdown_trigger > 0 and depth >= cfg.slowdown_trigger:
             st.write_slowdowns += 1
             time.sleep(_SLOWDOWN_SLEEP_S)
+            dt = time.perf_counter_ns() - t0
+            if tel is not None:
+                tel.record("stall", dt)
+                tel.emit("slowdown", depth=depth, t0=t0, dur_ns=dt)
         else:
             return
         st.stall_ns += time.perf_counter_ns() - t0
@@ -437,10 +557,143 @@ class LSMStore:
         if self._scheduler is None:
             return True
         try:
-            return self._scheduler.wait_for_quiesce(timeout)
+            ok = self._scheduler.wait_for_quiesce(timeout)
         except RuntimeError:
             self._bg_failure_surfaced = True
             raise
+        if ok and self._tuner is not None and self._tune_armed:
+            self.apply_tuning()    # a drained pipeline is a tuning boundary
+        return ok
+
+    # ------------------------------------------------------- online tuning
+    def _maybe_tune(self, k: int = 1) -> None:
+        """Write-boundary tuning trigger: count ops; once ``interval_ops``
+        elapse, arm, and tick at the first compaction-chain boundary (at
+        once in sync mode, at the next idle check in async mode)."""
+        tun = self._tuner
+        self._tune_ops += k
+        if not self._tune_armed:
+            if self._tune_ops < tun.interval_ops:
+                return
+            self._tune_armed = True
+        sched = self._scheduler
+        if sched is not None and not sched.idle():
+            return
+        self._tune_ops = 0
+        self._tune_armed = False
+        tun.tick(self)
+
+    def apply_tuning(self) -> Optional[TunerStep]:
+        """One tuner tick now iff the store is at a boundary (the scheduler
+        idle; a synchronous store always is, between ops): the single
+        actuation point.  Returns the decision, or None when not at a
+        boundary, without a bound tuner, or on a too-small window."""
+        tun = self._tuner
+        if tun is None:
+            return None
+        if self._scheduler is not None and not self._scheduler.idle():
+            return None
+        self._tune_ops = 0
+        self._tune_armed = False
+        return tun.tick(self)
+
+    def retune_policy(self, *, T: Optional[float] = None,
+                      c: Optional[float] = None) -> None:
+        """Swap in a same-family policy with new knobs (tuner actuator):
+        only future ``plan()`` calls see the new capacities; the installed
+        tree is never rewritten."""
+        cfg = self.config
+        if T is not None:
+            cfg.T = float(T)
+        if c is not None:
+            cfg.c = float(c)
+        self.policy = self.policy.retuned(T=cfg.T, c=cfg.c)
+
+    def set_cache_split(self, pin_l0_bytes: int) -> None:
+        """Move budget between the block cache and the pinned L0 at constant
+        total memory (tuner actuator): the cache resizes in place and the
+        L0 repins under the new budget (charged)."""
+        if self.block_cache is None or self.pinned_l0 is None:
+            return
+        cfg = self.config
+        total = cfg.cache_bytes + cfg.pin_l0_bytes
+        pin = max(0, min(int(pin_l0_bytes), total))
+        cfg.pin_l0_bytes = pin
+        cfg.cache_bytes = total - pin
+        self.block_cache.resize(cfg.cache_bytes)
+        self.pinned_l0.pin_l0_bytes = pin
+        with self._maint_lock:
+            self.pinned_l0.repin(self._levels[0], stats=self._stats.local())
+
+    def compact_to_shape(self, max_merges: int = 64) -> int:
+        """Maintenance compaction: fold the tree to the policy's shape.
+
+        A retune that widens the capacity schedule leaves every level of
+        the old, deeper shape under its new cap, so no compaction would
+        ever fold it.  This merges the shallowest populated deep level into
+        the next until the populated-level count matches
+        ``policy.predicted_levels`` for the data size, then lets the planner
+        settle (L0 keeps its own trigger).  Call at a quiesce boundary
+        (returns 0 when the scheduler is busy).  Returns the merges done."""
+        if self._scheduler is not None and not self._scheduler.idle():
+            return 0
+        self._compact_until_quiet()     # settle organic triggers first
+        pred = getattr(self.policy, "predicted_levels", None)
+        merges = 0
+        while merges < max_merges:
+            deep = [i for i, lvl in enumerate(self._levels) if lvl and i >= 1]
+            if len(deep) < 2 or pred is None:
+                break
+            total = sum(r.data_bytes
+                        for lvl in self._levels for r in lvl)
+            target = max(1, int(math.ceil(
+                pred(total, self.config.base_level_bytes))))
+            if len(deep) <= target:
+                break
+            src, dst = deep[0], deep[1]
+            task = CompactionTask(
+                src, dst, True, "reshape",
+                src_run_ids=tuple(r.run_id for r in self._levels[src]))
+            if not self._apply(task):
+                break       # tree changed under us: stop, planner recovers
+            merges += 1
+        if merges:
+            # re-settle, then drop the level-count watermark to the new
+            # depth so future capacity schedules price the reshaped tree
+            self._compact_until_quiet()
+            self._max_level = max(
+                (i for i, lvl in enumerate(self._levels) if lvl), default=1)
+            tel = self.config.telemetry
+            if tel is not None:
+                tel.emit("reshape", merges=merges,
+                         levels=len([lv for lv in self._levels if lv]))
+        return merges
+
+    def _tuning_actuators(self):
+        """Knob accessors the tuner climbs, ``{name: (get, set)}``: ``c``
+        and ``T`` always, ``slowdown_trigger`` with the async pressure path,
+        ``pin_frac`` with a cache and a pinned L0."""
+        acts = {
+            "c": (lambda: self.policy.c,
+                  lambda v: self.retune_policy(c=v)),
+            "T": (lambda: self.policy.T,
+                  lambda v: self.retune_policy(T=v)),
+        }
+        if self._scheduler is not None:
+            acts["slowdown_trigger"] = (
+                lambda: self.config.slowdown_trigger,
+                lambda v: setattr(self.config, "slowdown_trigger", int(v)))
+        if self.block_cache is not None and self.pinned_l0 is not None:
+            acts["pin_frac"] = (self._get_pin_frac, self._set_pin_frac)
+        return acts
+
+    def _get_pin_frac(self) -> float:
+        total = self.config.cache_bytes + self.config.pin_l0_bytes
+        return self.config.pin_l0_bytes / total if total else 0.0
+
+    def _set_pin_frac(self, v: float) -> None:
+        total = self.config.cache_bytes + self.config.pin_l0_bytes
+        self.set_cache_split(int(total * float(v)))
 
     def close(self) -> None:
         """Drain and stop the background workers (async mode); the store
@@ -511,6 +764,14 @@ class LSMStore:
             self._compact_until_quiet()
         if sched.aborting:
             return None     # crash in progress: imm stays queued for replay
+        f = self.config.faults
+        if f is not None:
+            f.check("flush_write")
+        tel = self.config.telemetry
+        t0 = tok = 0
+        if tel is not None:
+            t0 = time.perf_counter_ns()
+            tok = tel.emit("flush_start", entries=len(imm.memtable), bg=1)
         run = imm.memtable.to_run(self._bits_for_level(0), st, self.device)
         if len(run):
             levels = [list(lvl) for lvl in self._levels]
@@ -521,6 +782,11 @@ class LSMStore:
             self._imm = [m for m in self._imm if m is not imm]
             sched.lock.notify_all()     # wake write-pressure waiters
         st.bg_flushes += 1
+        if tel is not None:
+            dur = time.perf_counter_ns() - t0
+            tel.record("flush", dur)
+            tel.emit("flush_end", token=tok, entries=len(run), bg=1,
+                     t0=t0, dur_ns=dur)
         return CompactJob()
 
     def _bg_compact_one(self) -> Optional[CompactionTask]:
@@ -583,8 +849,17 @@ class LSMStore:
         if not task.matches(srcs):
             return False
         dsts = levels[task.dst_level] if task.include_dst else []
+        tel = self.config.telemetry
+        t0 = tok = 0
+        if tel is not None:
+            t0 = time.perf_counter_ns()
+            tok = tel.emit("compaction_start", src=task.src_level,
+                           dst=task.dst_level, runs=len(srcs) + len(dsts))
         drop_tombs = task.include_dst \
             and task.dst_level >= self._deepest_nonempty()
+        f = self.config.faults
+        if f is not None:
+            f.check("compaction_merge")
         merged = merge_runs(srcs + dsts, self._bits_for_level(task.dst_level),
                             self._stats.local(), drop_tombstones=drop_tombs,
                             block_size=self.config.block_size,
@@ -597,6 +872,12 @@ class LSMStore:
         self._levels = levels
         self._max_level = max(self._max_level, task.dst_level)
         self._commit()
+        if tel is not None:
+            dur = time.perf_counter_ns() - t0
+            tel.record("compaction", dur)
+            tel.emit("compaction_end", token=tok, src=task.src_level,
+                     dst=task.dst_level, entries=len(merged),
+                     t0=t0, dur_ns=dur)
         return True
 
     def _deepest_nonempty(self) -> int:
@@ -610,6 +891,11 @@ class LSMStore:
     def _commit(self):
         st = self._stats.local()
         self.manifest.commit(self._levels, self._max_level, self._seq, st)
+        f = self.config.faults
+        if f is not None:
+            # after the in-memory commit, before durability: the edit is
+            # appended but not synced, the window a failed fsync leaves
+            f.check("manifest_fsync")
         self.manifest.fsync(st)
         with self._maint_lock:
             # gc + retain + repin must not interleave with a snapshot
@@ -664,11 +950,71 @@ class LSMStore:
             for r in reversed(lvl):
                 yield r
 
+    # ------------------------------------------------------- range views
+    def _view_fresh(self) -> Optional[RangeView]:
+        """The range view iff it indexes the *published* level list: every
+        install replaces ``self._levels``, so one identity test is the
+        whole staleness check."""
+        v = self._range_view
+        if v is not None and v.levels_ref is self._levels:
+            return v
+        return None
+
+    def refresh_range_view(self, background: bool = False
+                           ) -> Optional[RangeView]:
+        """(Re)build the range view from the published levels, re-merging
+        only the levels whose runs changed since the last build.  Called by
+        a worker once the tree is shaped (``background=True``) or by the
+        first view read in sync mode, never by the write path."""
+        if not self.config.use_range_views:
+            return None
+        levels = self._levels
+        v = self._range_view
+        if v is not None and v.levels_ref is levels:
+            return v
+        t0 = time.perf_counter_ns()
+        view = build_range_view(levels, self._view_cache,
+                                telemetry=self.config.telemetry,
+                                device=self.device)
+        dt = time.perf_counter_ns() - t0
+        st = self._stats.local()
+        st.view_rebuilds += 1
+        if background:
+            st.bg_view_rebuilds += 1
+        st.view_entries_built += len(view)
+        st.view_rebuild_ns += dt
+        tel = self.config.telemetry
+        if tel is not None:
+            tel.record("view_rebuild", dt)
+        self._range_view = view
+        return view
+
+    def _bg_refresh_view(self) -> None:
+        """Scheduler hook: rebuild the view on the worker that found the
+        tree quiet (a CompactJob with no task left)."""
+        if not self.config.use_range_views:
+            return
+        if self._scheduler is not None and self._scheduler.aborting:
+            return
+        self.refresh_range_view(background=True)
+
+    # -------------------------------------------------------- point reads
     def get(self, key: int, snapshot: Optional[Version] = None
             ) -> Optional[bytes]:
-        """Point read: ``multi_get([key], snapshot)[0]``, with the same
-        accounting as the reference's scalar ``get``."""
-        return self.multi_get([key], snapshot)[0]
+        """Point read: the batch path on one key, with the same accounting
+        as the reference's scalar ``get`` (and its ``get`` span)."""
+        tel = self.config.telemetry
+        if tel is None:
+            return self._multi_get_impl([key], snapshot)[0]
+        t0 = time.perf_counter_ns()
+        try:
+            out = self._multi_get_impl([key], snapshot)[0]
+        except CorruptionError as e:
+            tel.emit("corruption", run_id=e.run_id, block_id=e.block_id,
+                     where="get")
+            raise
+        tel.record("get", time.perf_counter_ns() - t0)
+        return out
 
     def multi_get(self, keys: Sequence[int],
                   snapshot: Optional[Version] = None
@@ -679,8 +1025,25 @@ class LSMStore:
         run, newest first, the keys still pending are probed with the bloom
         kernel and located with one searchsorted.  A snapshot read skips
         the memtable and walks the snapshot's runs.  Aggregate IOStats
-        accounting is identical to the reference's.
+        accounting is identical to the reference's.  The ``multi_get`` span
+        ends after the last read-back, so it is the device's time too.
         """
+        tel = self.config.telemetry
+        if tel is None:
+            return self._multi_get_impl(keys, snapshot)
+        t0 = time.perf_counter_ns()
+        try:
+            out = self._multi_get_impl(keys, snapshot)
+        except CorruptionError as e:
+            tel.emit("corruption", run_id=e.run_id, block_id=e.block_id,
+                     where="multi_get")
+            raise
+        tel.record("multi_get", time.perf_counter_ns() - t0)
+        return out
+
+    def _multi_get_impl(self, keys: Sequence[int],
+                        snapshot: Optional[Version] = None
+                        ) -> List[Optional[bytes]]:
         st = self._stats.local()
         keys_arr = np.asarray(list(keys), dtype=KEY_DTYPE)
         n = int(keys_arr.size)
@@ -707,7 +1070,10 @@ class LSMStore:
         if pending.size == 0:
             return results
         q = ops.keys_to_device(keys_arr[pending], self.device)
-        use_bloom = self.config.bits_per_key > 0
+        cfg = self.config
+        use_bloom = cfg.bits_per_key > 0
+        paranoid = cfg.paranoid_checks
+        faults = cfg.faults
         cache = self.block_cache
         for run in self._runs_newest_first(self._read_state(snapshot)):
             if pending.size == 0:
@@ -715,38 +1081,61 @@ class LSMStore:
             if len(run) == 0:
                 continue
             st.runs_touched_point += int(pending.size)
-            found, values, q = run.point_get_batch(q, st, use_bloom, cache)
+            found, values, q = run.point_get_batch(q, st, use_bloom, cache,
+                                                   paranoid, faults)
             if found.any():
                 for p in np.nonzero(found)[0].tolist():
                     results[int(pending[p])] = values[p]
                 pending = pending[~found]
         return results
 
+    # -------------------------------------------------------- range reads
     def seek(self, key: int, snapshot: Optional[Version] = None
              ) -> Optional[int]:
         """The first key >= ``key`` (db_bench Seek).
 
-        Cost: one seek + one block read per run with a valid position; one
-        read-back brings every run's position and key.
+        Through a fresh range view: one binary search and one block.  Else
+        one seek + one block read per run with a valid position, one
+        read-back bringing every run's position and key.
 
         Tombstone handling is approximate, as in the reference (a cost
         probe, not a correctness surface — ``scan`` is): memtable entries
         are liveness-filtered but run entries are not, so a deleted key
         stops shadowing once its tombstone flushes.
         """
+        return self._span("seek", self._seek_impl, key, snapshot)
+
+    def _seek_impl(self, key: int, snapshot: Optional[Version] = None
+                   ) -> Optional[int]:
         st = self._stats.local()
         st.range_reads += 1
         best: Optional[int] = None
+        cfg = self.config
         mems = self._mem_sources() if snapshot is None else []
+        cache = self.block_cache
+        if snapshot is None and cfg.use_range_views:
+            view = self._view_fresh()
+            if view is None and self._scheduler is None:
+                view = self.refresh_range_view()
+            if view is not None:
+                st.view_scans += 1
+                best = view.seek(int(key), st, cache)
+                for mt in mems:
+                    for k, s, v in mt.scan(int(key), limit=1):
+                        if v is not None and (best is None or k < best):
+                            best = k
+                return best
+            st.view_fallbacks += 1
         runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
                 if len(r)]
-        cache = self.block_cache
         for run, i, k, b in zip(runs, *seek_batch(
                 runs, int(key), with_blocks=True)):
             st.runs_touched_range += 1
             st.seeks += 1
             if i < len(run):
-                run._charge_block(b, st, cache)
+                run._charge_block(b, st, cache,
+                                  paranoid=cfg.paranoid_checks,
+                                  faults=cfg.faults)
                 if best is None or k < best:
                     best = k
         for mt in mems:
@@ -771,9 +1160,40 @@ class LSMStore:
 
     def scan(self, start_key: int, count: int,
              snapshot: Optional[Version] = None) -> List[Tuple[int, bytes]]:
-        """Range read: first ``count`` live entries with key >= start_key,
-        through the merging iterator (range views are not ported)."""
-        self._stats.local().range_reads += 1
+        """Range read: first ``count`` live entries with key >= start_key.
+
+        Through the merging iterator; with ``use_range_views`` a fresh
+        range view serves it instead (one binary search, one sweep, one
+        batched value fetch), and a stale one falls back to the iterator
+        and counts ``view_fallbacks``: the answer is the same either way.
+        """
+        return self._span("scan", self._scan_impl, start_key, count,
+                          snapshot)
+
+    def _scan_impl(self, start_key: int, count: int,
+                   snapshot: Optional[Version] = None
+                   ) -> List[Tuple[int, bytes]]:
+        st = self._stats.local()
+        st.range_reads += 1
+        if snapshot is None and self.config.use_range_views:
+            # memtables before the view capture (see _mem_sources)
+            mems = self._mem_sources()
+            view = self._view_fresh()
+            if view is None and self._scheduler is None:
+                view = self.refresh_range_view()  # lazy in sync mode
+            if view is not None:
+                st.view_scans += 1
+                mems = [m for m in mems if len(m)]   # empty => pure sweep
+                if len(mems) == 1:      # its cached key-sorted copy
+                    mem_keys, mem_items = mems[0].sorted_entries()
+                else:
+                    mem_items = combined_mem_items(mems, int(start_key))
+                    mem_keys = np.fromiter((e[0] for e in mem_items),
+                                           KEY_DTYPE, len(mem_items))
+                return view.scan_with_memtable(int(start_key), count,
+                                               mem_keys, mem_items, st,
+                                               self.block_cache)
+            st.view_fallbacks += 1
         return self.iterator(snapshot).scan(int(start_key), count)
 
     def scan_scalar(self, start_key: int, count: int,
@@ -885,10 +1305,11 @@ class LSMStore:
         medium and stay too."""
         if self._scheduler is not None:
             self._scheduler.abort_and_drain()
-        self.wal.crash()
+        f = self.config.faults
+        self.wal.crash(f)
         for imm in self._imm:
             imm.wal.crash()   # fully synced at rotation: keeps every byte
-        self.manifest.crash()
+        self.manifest.crash(f)
         self.memtable.clear()
 
     def recover(self):
@@ -902,7 +1323,11 @@ class LSMStore:
         is scrubbed on the device — a bad block raises
         :class:`CorruptionError`.  Degraded mode ends: the failed
         pipeline's state was volatile."""
-        v, _ = self.manifest.recover_current()
+        tel = self.config.telemetry
+        v, popped = self.manifest.recover_current()
+        if popped and tel is not None:
+            tel.emit("corruption", run_id=-1, block_id=-1, where="manifest",
+                     popped_versions=popped)
         self._levels = v.runs(self.storage)
         self._max_level = v.max_level
         self._seq = v.last_seq
@@ -913,8 +1338,14 @@ class LSMStore:
             with self._maint_lock:
                 self.pinned_l0.repin(self._levels[0],
                                      stats=self._stats.local())
-        self.wal.repair()
-        self._consolidate_imm_wal()
+        wal_dropped = self.wal.repair()
+        if wal_dropped and tel is not None:
+            tel.emit("corruption", run_id=-1, block_id=-1, where="wal",
+                     dropped_bytes=wal_dropped)
+        replayed = self._consolidate_imm_wal()
+        if tel is not None:
+            tel.emit("wal_replay", records=replayed,
+                     bytes=len(self.wal._buf), dropped_bytes=wal_dropped)
         for r in self.scrub():
             if r["bad_blocks"]:
                 raise CorruptionError(r["run_id"], r["bad_blocks"][0],
@@ -923,10 +1354,123 @@ class LSMStore:
     def scrub(self) -> List[dict]:
         """Verify every run's block checksums on the device; one report
         dict per run (``run_id``, ``level``, ``entries``, ``blocks``,
-        ``bad_blocks``: empty == clean).  Does not raise."""
-        return [{"run_id": run.run_id, "level": li, "entries": len(run),
-                 "blocks": run.n_blocks, "bad_blocks": run.verify()}
-                for li, lvl in enumerate(self._levels) for run in lvl]
+        ``bad_blocks``: empty == clean).  Emits a ``scrub`` event (and a
+        ``corruption`` event per dirty run) but does not raise."""
+        tel = self.config.telemetry
+        t0 = time.perf_counter_ns() if tel is not None else 0
+        report: List[dict] = []
+        for li, lvl in enumerate(self._levels):
+            for run in lvl:
+                bad = run.verify()
+                report.append({"run_id": run.run_id, "level": li,
+                               "entries": len(run), "blocks": run.n_blocks,
+                               "bad_blocks": bad})
+                if bad and tel is not None:
+                    tel.emit("corruption", run_id=run.run_id,
+                             block_id=int(bad[0]), where="scrub",
+                             bad_blocks=len(bad))
+        if tel is not None:
+            tel.record("scrub", time.perf_counter_ns() - t0)
+            tel.emit("scrub", runs=len(report),
+                     bad_runs=sum(1 for r in report if r["bad_blocks"]))
+        return report
+
+    # ------------------------------------------------- range migration
+    # The sharded facade's three primitives (ROADMAP A8 drives them).  Each
+    # assumes a quiesced store with no foreground writer, except
+    # strip_to_range, which recovery also calls.
+    def _range_bounds(self, run: SortedRun, lo: int, hi: int
+                      ) -> Tuple[int, int]:
+        """Rows of ``run`` with ``lo <= key < hi`` (``hi`` may be 2^64)."""
+        dev = run.device
+        q = [ops.order_of(lo)] + ([] if hi >= 1 << 64 else [ops.order_of(hi)])
+        at = torch.searchsorted(run.keys, torch.tensor(
+            q, dtype=torch.int64, device=dev)).tolist()
+        return at[0], (len(run) if hi >= 1 << 64 else at[1])
+
+    def export_range(self, lo: int, hi: int):
+        """Columns of every stored entry with ``lo <= key < hi``, on the
+        device: ``(keys, seqs, vlens, vals)`` (order-mapped keys), with
+        duplicates kept (one row per surviving entry, any level, newest run
+        first) so an importer's ``build_run`` keeps the newest version, or
+        ``None`` when the range holds nothing.  Needs an empty memtable."""
+        assert len(self.memtable) == 0 and not self._imm, \
+            "export_range requires a flushed, quiesced store"
+        parts, vmax = [], 0
+        for run in self._runs_newest_first(self._levels):
+            if len(run) == 0:
+                continue
+            i0, i1 = self._range_bounds(run, lo, hi)
+            if i0 >= i1:
+                continue
+            parts.append((run.keys[i0:i1], run.seqs[i0:i1],
+                          run.vlens[i0:i1], run.vals[i0:i1]))
+            vmax = max(vmax, run.vals.shape[1])
+        if not parts:
+            return None
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts]),
+                torch.cat([torch.nn.functional.pad(
+                    p[3], (0, vmax - p[3].shape[1])) for p in parts]))
+
+    def import_migrated_run(self, run: SortedRun) -> None:
+        """Install a migrated run as the newest L0 run and commit it.  The
+        caller guarantees its key range is disjoint from this store's."""
+        if len(run) == 0:
+            return
+        f = self.config.faults
+        if f is not None:
+            f.check("migration_import")  # before any mutation
+        self._seq = max(self._seq, int(run.seqs.max()))
+        levels = [list(lvl) for lvl in self._levels]
+        levels[0].append(run)          # newest last, like flush
+        self._levels = levels          # COW publish
+        st = self._stats.local()
+        st.blocks_written += -(-run.data_bytes // self.config.block_size)
+        self._commit()
+
+    def strip_to_range(self, lo: int, hi: int) -> int:
+        """Drop every stored entry outside ``[lo, hi)``; return the count.
+        Runs wholly outside go, straddling runs are rebuilt from their
+        in-range slice; commits only when something changed.  The memtable
+        is left alone."""
+        f = self.config.faults
+        if f is not None:
+            f.check("migration_strip")   # before any mutation
+        dropped = 0
+        changed = False
+        levels: List[List[SortedRun]] = []
+        for li, lvl in enumerate(self._levels):
+            out = []
+            for run in lvl:
+                if len(run) == 0:
+                    out.append(run)
+                    continue
+                i0, i1 = self._range_bounds(run, lo, hi)
+                if i0 == 0 and i1 == len(run):
+                    out.append(run)
+                    continue
+                changed = True
+                dropped += len(run) - (i1 - i0)
+                if i0 >= i1:
+                    continue                      # wholly outside: drop
+                nr = build_run(run.keys[i0:i1].clone(),
+                               run.seqs[i0:i1].clone(),
+                               run.vlens[i0:i1].clone(),
+                               run.vals[i0:i1].clone(),
+                               bits_per_key=self._bits_for_level(li),
+                               assume_unique_sorted=True,
+                               block_size=self.config.block_size,
+                               key_bytes=self.config.key_bytes)
+                self._stats.local().blocks_written += \
+                    -(-nr.data_bytes // self.config.block_size)
+                out.append(nr)
+            levels.append(out)
+        if changed:
+            self._levels = levels          # COW publish: views go stale
+            self._commit()
+        return dropped
 
     # -------------------------------------------------------- inspection
     def level_summary(self) -> List[dict]:

@@ -1,6 +1,6 @@
-"""Integrity primitives: CRC-32C on the host and on the device.
+"""Integrity primitives and fault injection, on the host and on the device.
 
-A copy of the checksum half of ``repro.core.faults``:
+A copy of ``repro.core.faults``:
 
 * ``crc32c`` — the scalar byte-loop oracle;
 * ``crc32c_rows`` — its vectorized numpy twin over the rows of a padded
@@ -10,10 +10,16 @@ A copy of the checksum half of ``repro.core.faults``:
   columns live on the card.
 
 CRC-32C is the Castagnoli polynomial (reflected 0x82F63B78); ``zlib.crc32``
-is a different polynomial.  The typed failures ``CorruptionError`` (a
-checksum mismatch) and ``StoreDegradedError`` (writes refused after the
-background pipeline gave up) are the reference's.  Fault injection is left
-to a later slice.
+is a different polynomial.  The typed failures ``InjectedFault`` (a
+deliberately injected I/O error), ``CorruptionError`` (a checksum
+mismatch) and ``StoreDegradedError`` (writes refused after the background
+pipeline gave up) are the reference's.
+
+:class:`FaultInjector` is the reference's, draw for draw: one seeded
+``random.Random`` decides every probabilistic trigger and every corrupted
+byte, so one seed fires the same sites in the same order in both packages.
+Its ``corrupt_run_block`` flips a value byte or a sequence-number bit of a
+run whose columns live on the device, in place on the device.
 
 Long rows.  Both row functions step one byte column per pass, so their cost
 grows with the row length: a 9.44 MB AutumnKV page would take 9.44M passes.
@@ -27,13 +33,15 @@ row's last chunk.  A matrix no wider than one chunk keeps the byte loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import random
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["CHUNK", "CorruptionError", "StoreDegradedError", "crc32c",
-           "crc32c_rows", "crc32c_rows_torch"]
+__all__ = ["CHUNK", "FAULT_SITES", "CorruptionError", "FaultInjector",
+           "InjectedFault", "StoreDegradedError", "crc32c", "crc32c_rows",
+           "crc32c_rows_torch"]
 
 # Chunk length of the long-row path.  The device pass costs about seven
 # launches per chunk byte, so 1 KiB keeps one long-row checksum near 7k
@@ -240,6 +248,14 @@ def _crc32c_rows_chunked_torch(mat: torch.Tensor,
     return acc ^ 0xFFFFFFFF
 
 
+class InjectedFault(IOError):
+    """A deliberately injected fault at a named durability/IO site."""
+
+    def __init__(self, site: str):
+        super().__init__(f"injected fault at {site!r}")
+        self.site = site
+
+
 class CorruptionError(RuntimeError):
     """A checksum mismatch detected on read, scrub, or recovery.
 
@@ -260,3 +276,169 @@ class StoreDegradedError(RuntimeError):
     """Writes rejected: the store is read-only after persistent background
     failure.  Reads keep serving the committed tree; ``crash()`` +
     ``recover()`` restores write service."""
+
+
+# Every instrumented durability/IO site (the crash-point matrix iterates
+# this).  The two migration sites belong to the sharded facade's range
+# migration primitives (``export_range``/``strip_to_range``/
+# ``import_migrated_run``).
+FAULT_SITES = (
+    "wal_append",
+    "wal_fsync",
+    "manifest_fsync",
+    "block_read",
+    "compaction_merge",
+    "flush_write",
+    "migration_import",
+    "migration_strip",
+)
+
+
+class FaultInjector:
+    """Trigger injected failures and corruption at named sites.
+
+    Failure triggers (``check(site)`` raises :class:`InjectedFault`):
+
+    * ``fail(site, times=1)``   -- fire on the next ``times`` hits
+      (``times=-1`` fires forever);
+    * ``fail_every(site, n)``   -- fire on every Nth hit of the site;
+    * ``fail_prob(site, p)``    -- fire with probability ``p`` per hit, from
+      the injector's seeded RNG.
+
+    Corruption arming, consumed by the ``crash()`` paths:
+    ``corrupt_wal_tail(mode)`` (``"torn"`` keeps a random prefix of the
+    unsynced tail; ``"bitflip"``/``"garbage"`` damage the synced region's
+    last bytes) and ``corrupt_manifest_edit()`` (the last edit's checksum
+    stops matching).  ``corrupt_run_block(run)`` acts at once.
+
+    ``fired`` counts every triggered failure and corruption by site.
+    """
+
+    def __init__(self, seed: int = 0):
+        self.rng = random.Random(seed)
+        self._times: Dict[str, int] = {}
+        self._every: Dict[str, int] = {}
+        self._hits: Dict[str, int] = {}
+        self._prob: Dict[str, float] = {}
+        self.fired: Dict[str, int] = {}
+        self.wal_tail_mode: Optional[str] = None   # None | torn | bitflip | garbage
+        self.manifest_corruption: bool = False
+
+    # -- arming -------------------------------------------------------------
+    def fail(self, site: str, times: int = 1) -> "FaultInjector":
+        self._times[site] = times
+        return self
+
+    def fail_every(self, site: str, n: int) -> "FaultInjector":
+        if n < 1:
+            raise ValueError("fail_every needs n >= 1")
+        self._every[site] = n
+        return self
+
+    def fail_prob(self, site: str, p: float) -> "FaultInjector":
+        self._prob[site] = float(p)
+        return self
+
+    def clear(self, site: Optional[str] = None) -> None:
+        if site is None:
+            self._times.clear()
+            self._every.clear()
+            self._prob.clear()
+        else:
+            self._times.pop(site, None)
+            self._every.pop(site, None)
+            self._prob.pop(site, None)
+
+    def corrupt_wal_tail(self, mode: str = "bitflip") -> "FaultInjector":
+        if mode not in ("torn", "bitflip", "garbage"):
+            raise ValueError(f"unknown WAL tail corruption mode {mode!r}")
+        self.wal_tail_mode = mode
+        return self
+
+    def corrupt_manifest_edit(self) -> "FaultInjector":
+        self.manifest_corruption = True
+        return self
+
+    # -- firing -------------------------------------------------------------
+    def _fired(self, site: str) -> None:
+        self.fired[site] = self.fired.get(site, 0) + 1
+        raise InjectedFault(site)
+
+    def check(self, site: str) -> None:
+        """Raise :class:`InjectedFault` if a trigger for ``site`` fires."""
+        t = self._times.get(site)
+        if t is not None and t != 0:
+            if t > 0:
+                self._times[site] = t - 1
+            self._fired(site)
+        n = self._every.get(site)
+        if n is not None:
+            h = self._hits.get(site, 0) + 1
+            self._hits[site] = h
+            if h % n == 0:
+                self._fired(site)
+        p = self._prob.get(site)
+        if p is not None and self.rng.random() < p:
+            self._fired(site)
+
+    # -- corruption helpers (called by crash() and by tests) ----------------
+    def mangle_wal_tail(self, buf: bytearray, synced_upto: int) -> int:
+        """Apply the armed WAL tail corruption to ``buf`` and return the
+        buffer length to keep.  Consumes the armed mode."""
+        mode, self.wal_tail_mode = self.wal_tail_mode, None
+        if mode is None:
+            return synced_upto
+        self.fired["wal_tail:" + mode] = self.fired.get("wal_tail:" + mode, 0) + 1
+        if mode == "torn":
+            # a torn write: some prefix of the unsynced tail made it out
+            extra = len(buf) - synced_upto
+            return synced_upto + (self.rng.randrange(extra + 1) if extra > 0 else 0)
+        # bitflip / garbage damage bytes *within* the synced region's tail,
+        # so recovery cannot trust the length watermark and must checksum.
+        if synced_upto == 0:
+            return 0
+        lo = max(0, synced_upto - 32)
+        if mode == "bitflip":
+            pos = self.rng.randrange(lo, synced_upto)
+            buf[pos] ^= 1 << self.rng.randrange(8)
+        else:  # garbage
+            pos = self.rng.randrange(lo, synced_upto)
+            end = min(synced_upto, pos + 8)
+            for i in range(pos, end):
+                buf[i] = self.rng.randrange(256)
+        return synced_upto
+
+    def corrupt_run_block(self, run) -> int:
+        """Flip bits inside a sampled block of ``run`` (on its device);
+        return the block id.
+
+        Prefers a value byte (payload corruption); in a block of tombstones
+        or empty values it flips a sequence-number bit instead.  Either way
+        the block's checksum stops matching.  The draws are the
+        reference's: the block's entries come back once (a block is at
+        most a few hundred rows) to pick the entry the RNG names.
+        """
+        if run.n_blocks == 0 or len(run) == 0:
+            raise ValueError("cannot corrupt an empty run")
+        bid = self.rng.randrange(run.n_blocks)
+        idx = _block_rows(run, bid)
+        if idx.size == 0:  # block spanned by a giant neighbouring entry
+            bid = int(run.block_of[self.rng.randrange(len(run))])
+            idx = _block_rows(run, bid)
+        e = int(idx[self.rng.randrange(idx.size)])
+        vlen = int(run.vlens[e])
+        if vlen > 0 and run.vals.dim() == 2 and run.vals.shape[1] > 0:
+            col = self.rng.randrange(vlen)
+            run.vals[e, col] ^= 1 << self.rng.randrange(8)
+        else:
+            run.seqs[e] ^= 1 << self.rng.randrange(40)
+        self.fired["corrupt_block"] = self.fired.get("corrupt_block", 0) + 1
+        return bid
+
+
+def _block_rows(run, block_id: int) -> np.ndarray:
+    """Row indices of the entries that start in ``block_id`` (host)."""
+    lo, hi = torch.searchsorted(
+        run.block_of, torch.tensor([block_id, block_id + 1],
+                                   device=run.block_of.device)).tolist()
+    return np.arange(lo, hi)

@@ -156,13 +156,24 @@ class Manifest:
         with self._mu:
             return sum(self._pin_refs.values())
 
-    def crash(self):
+    def crash(self, faults=None):
         """Lose the versions past the fsync watermark (simulated crash);
-        reader pins are process state and go too."""
+        reader pins are process state and go too.  A ``FaultInjector``
+        armed with ``corrupt_manifest_edit()`` garbles the last surviving
+        edit's ``last_seq`` without updating its checksum, so recovery
+        falls back one version."""
         with self._mu:
             self._pinned.clear()
             self._pin_refs.clear()
             self._log = self._log[: max(self._synced_upto, 1)]
+            if faults is not None and faults.manifest_corruption \
+                    and len(self._log) > 1:
+                faults.manifest_corruption = False
+                faults.fired["manifest_edit"] = \
+                    faults.fired.get("manifest_edit", 0) + 1
+                v = self._log[-1]
+                self._log[-1] = dataclasses.replace(
+                    v, last_seq=v.last_seq ^ (1 << 17))
 
     def recover_current(self) -> Tuple[Version, int]:
         """The newest checksum-valid version, popping any corrupt tail

@@ -179,9 +179,16 @@ class WriteAheadLog:
         self._buf = bytearray()
         self._synced_upto = 0
 
-    def crash(self):
-        """Simulate a crash: the unsynced suffix is lost."""
-        self._buf = self._buf[:self._synced_upto]
+    def crash(self, faults=None):
+        """Simulate a crash: the unsynced suffix is lost.  An armed
+        ``FaultInjector`` makes the loss dirtier (``mangle_wal_tail``): a
+        torn write keeps a random prefix of the unsynced tail, a bit flip
+        or garbage damages the synced region's last bytes, which recovery
+        must then find by checksum."""
+        keep = (self._synced_upto if faults is None
+                else faults.mangle_wal_tail(self._buf, self._synced_upto))
+        self._buf = self._buf[:keep]
+        self._synced_upto = min(self._synced_upto, len(self._buf))
 
     def _scan_frames(self):
         """Parse and verify frames: ``(metas, frame_offsets, good_end)``.

@@ -31,14 +31,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..kernels import ops
 from ..kernels.merge import FROM_B
 from .bloom import BloomFilter
-from .faults import crc32c_rows_torch
+from .faults import CorruptionError, crc32c_rows_torch
 from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats
 
 _run_ids = itertools.count()
 _SIGN = 1 << 63
+# Block verifications (under the launch counts' lock): "batch" counts the
+# one device pass of a paranoid point_get_batch (all of a run's candidate
+# blocks), "block" one verify_block (one block, as a paranoid seek's).
+VERIFY_PASSES = {"batch": 0, "block": 0}
 
 
 # Scratch bound of the per-entry checksum pass: rows are checksummed in
@@ -158,13 +163,56 @@ class SortedRun:
 
     def verify_block(self, block_id: int) -> bool:
         """Recompute one block's checksum from its entries; True iff
-        clean."""
-        sel = torch.nonzero(self.block_of == block_id).squeeze(1)
-        fresh = 0
-        for c in _entry_crcs(self.keys[sel], self.seqs[sel], self.vlens[sel],
-                             self.vals[sel]).tolist():
-            fresh ^= c
-        return fresh == int(self.block_crcs[block_id])
+        clean.  Two waits: the block's row range, then the comparison."""
+        with _build.COUNT_LOCK:
+            VERIFY_PASSES["block"] += 1
+        lo, hi = torch.searchsorted(self.block_of, torch.tensor(
+            [block_id, block_id + 1], device=self.device)).tolist()
+        fresh = _xor_scan(_entry_crcs(self.keys[lo:hi], self.seqs[lo:hi],
+                                      self.vlens[lo:hi], self.vals[lo:hi]))
+        fresh = fresh[-1] if hi > lo else self.block_crcs.new_zeros(())
+        return bool(fresh == self.block_crcs[block_id])
+
+    def _candidate_blocks(self, blk: torch.Tensor):
+        """The distinct blocks of ``blk`` (block ids, ``n_blocks`` for "no
+        candidate"), as fixed-size device columns: ``(ids, valid, start,
+        count)``, sorted, with the first row and the member count of every
+        distinct block and ``valid`` False on repeats and the sentinel."""
+        ids = torch.sort(blk).values
+        valid = torch.ones_like(ids, dtype=torch.bool)
+        valid[1:] = ids[1:] != ids[:-1]
+        valid &= ids < self.n_blocks
+        ids = ids.clamp(max=self.n_blocks - 1)
+        start = torch.searchsorted(self.block_of, ids)
+        count = torch.searchsorted(self.block_of, ids, right=True) - start
+        return ids, valid, start, torch.where(valid, count, 0)
+
+    def _first_bad_block(self, ids, valid, start, count, total: int
+                         ) -> torch.Tensor:
+        """One device pass over the member entries of the distinct blocks
+        from :meth:`_candidate_blocks` (``total`` rows in all): their
+        entry CRCs folded per block with the XOR scan of
+        :meth:`_block_crcs_from`, held against the stored checksums.
+        Returns the lowest bad block id as a 0-d tensor (``n_blocks`` when
+        every block is clean); nothing is read back here."""
+        with _build.COUNT_LOCK:
+            VERIFY_PASSES["batch"] += 1
+        dev = self.device
+        end = torch.cumsum(count, 0)
+        first = end - count
+        if total:
+            seg = torch.repeat_interleave(
+                torch.arange(ids.numel(), device=dev), count,
+                output_size=total)
+            rows = start[seg] + torch.arange(total, device=dev) - first[seg]
+            acc = F.pad(_xor_scan(_entry_crcs(
+                self.keys[rows], self.seqs[rows], self.vlens[rows],
+                self.vals[rows])), (1, 0))
+            fresh = acc[end] ^ acc[first]
+        else:
+            fresh = torch.zeros_like(ids)
+        bad = valid & (fresh != self.block_crcs[ids])
+        return torch.where(bad, ids, self.n_blocks).min()
 
     def verify(self) -> List[int]:
         """Recompute every block checksum on the device; the bad block ids
@@ -176,17 +224,26 @@ class SortedRun:
             _entry_crcs(self.keys, self.seqs, self.vlens, self.vals))
         return torch.nonzero(fresh != self.block_crcs).squeeze(1).tolist()
 
-    def _charge_block(self, block_id: int, stats: IOStats, cache) -> None:
-        """One block touch: through the cache when present, else raw I/O."""
+    def _charge_block(self, block_id: int, stats: IOStats, cache,
+                      paranoid: bool = False, faults=None) -> None:
+        """One block touch: through the cache when present, else raw I/O.
+        ``faults`` fires the ``block_read`` site first; ``paranoid``
+        re-verifies the block after the read and raises
+        :class:`CorruptionError` on a mismatch."""
+        if faults is not None:
+            faults.check("block_read")
         if cache is None:
             stats.blocks_read += 1
         else:
             cache.read_block(self.run_id, int(block_id),
                              self.block_bytes(int(block_id)), stats)
+        if paranoid and not self.verify_block(int(block_id)):
+            raise CorruptionError(self.run_id, int(block_id))
 
     # ----------------------------------------------------------------- reads
     def point_get_batch(self, keys: torch.Tensor, stats: IOStats,
-                        use_bloom: bool = True, cache=None
+                        use_bloom: bool = True, cache=None,
+                        paranoid: bool = False, faults=None
                         ) -> Tuple[np.ndarray, List[Optional[bytes]],
                                    torch.Tensor]:
         """Vectorized point lookup of order-mapped ``keys`` (on this run's
@@ -201,6 +258,16 @@ class SortedRun:
         ``cache`` the same copy carries each key's candidate block (-1 for
         a key the filter rejected), and the candidates' reads go through
         the cache in batch order, as the reference charges them.
+
+        ``faults`` fires the ``block_read`` site once per candidate, after
+        the filter's counters and before the block charges, as the
+        reference does.  ``paranoid`` verifies the candidates' distinct
+        blocks in one device pass (:meth:`_first_bad_block`) whose lowest
+        bad block id comes back in the same transfer; it raises
+        :class:`CorruptionError` after the block charges, as the
+        reference's ascending verify loop raises at its first bad block.
+        A paranoid batch waits on the device twice, as a plain one does:
+        the wait for the hit count also brings the verify's row count.
         """
         n = keys.numel()
         found = np.zeros(n, dtype=bool)
@@ -215,13 +282,25 @@ class SortedRun:
         hit = (idx < self._len) & (self.keys[idxc] == keys)
         if probing:
             hit &= maybe
-        hit_pos = torch.nonzero(hit).squeeze(1)     # waits for the device
-        n_hit = hit_pos.numel()
+        if paranoid:
+            blk = self.block_of[idxc]
+            cand = torch.where(maybe, blk, self.n_blocks) if probing else blk
+            verify = self._candidate_blocks(cand)
+            n_hit, total = torch.stack([hit.sum(), verify[3].sum()]).tolist()
+            hit_pos = torch.argsort((~hit).to(torch.uint8),
+                                    stable=True)[:n_hit]
+            bad = self._first_bad_block(*verify, total).view(1)
+        else:
+            hit_pos = torch.nonzero(hit).squeeze(1)  # waits for the device
+            n_hit = hit_pos.numel()
         rows = idxc[hit_pos]
         n_maybe = maybe.sum() if probing else hit_pos.new_tensor(n)
         # one transfer: the candidate count, hit positions, value lengths
-        # (and candidate blocks) as int64, then the hit rows' values
+        # (the lowest bad block, the candidate blocks) as int64, then the
+        # hit rows' values
         parts = [n_maybe.view(1), hit_pos, self.vlens[rows].to(torch.int64)]
+        if paranoid:
+            parts.append(bad)
         if cache is not None:
             blk = self.block_of[idxc]
             parts.append(torch.where(maybe, blk, -1) if probing else blk)
@@ -236,13 +315,19 @@ class SortedRun:
             stats.bloom_negatives += n - n_cand
         if n_cand == 0:
             return found, values, keys
+        if faults is not None:
+            for _ in range(n_cand):      # one injection check per read
+                faults.check("block_read")
+        o = 1 + 2 * n_hit + int(paranoid)
         # Fence pointers give each candidate its unique block: 1 read apiece.
         if cache is None:
             stats.blocks_read += n_cand
         else:
-            blk = meta[1 + 2 * n_hit:]
+            blk = meta[o:]
             cache.read_blocks(self.run_id, blk[blk >= 0].tolist(),
                               self.block_bytes, stats)
+        if paranoid and meta[o - 1] < self.n_blocks:
+            raise CorruptionError(self.run_id, int(meta[o - 1]))
         stats.false_positives += n_cand - n_hit
         pos = meta[1:1 + n_hit]
         lens = meta[1 + n_hit:1 + 2 * n_hit].tolist()
@@ -285,12 +370,14 @@ class SortedRun:
         return last - first + 1
 
     def point_get(self, key: int, stats: IOStats, use_bloom: bool = True,
-                  cache=None) -> Tuple[bool, Optional[bytes]]:
+                  cache=None, paranoid: bool = False,
+                  faults=None) -> Tuple[bool, Optional[bytes]]:
         """(found, value_or_None_if_tombstone) of one u64 key: the batch
         path on one key, with the same accounting as the reference's scalar
         ``point_get``."""
         found, values, _ = self.point_get_batch(
-            ops.keys_to_device([key], self.device), stats, use_bloom, cache)
+            ops.keys_to_device([key], self.device), stats, use_bloom, cache,
+            paranoid, faults)
         return bool(found[0]), values[0]
 
 

@@ -149,7 +149,12 @@ class CompactJob:
     def run(self, store) -> Optional["CompactJob"]:
         task = store._bg_compact_one()
         self.last_task = task
-        return CompactJob() if task is not None else None
+        if task is not None:
+            return CompactJob()
+        # The tree is shaped: refresh the range view here, on the worker,
+        # never on the write path (a no-op without use_range_views).
+        store._bg_refresh_view()
+        return None
 
     def __repr__(self):
         return f"CompactJob(last={self.last_task})"
@@ -238,16 +243,23 @@ class CompactionScheduler:
                                 cont = job.run(store)
             except BaseException as e:    # the worker survives a failed job
                 cfg = store.config if store is not None else None
+                tel = cfg.telemetry if cfg is not None else None
                 job.retries += 1
                 if cfg is not None and job.retries <= cfg.bg_max_retries \
                         and not self._abort and not self._stop:
                     # bounded exponential backoff, then the same job re-runs
                     # from the front of the queue (its turnstile slot)
                     store._stats.local().bg_retries += 1
+                    if tel is not None:
+                        tel.emit("bg_retry", job=type(job).__name__,
+                                 attempt=job.retries, error=repr(e))
                     time.sleep(min(0.001 * (1 << (job.retries - 1)), 0.05))
                     with self._cv:
                         self._queue.appendleft(job)
                 else:
+                    if tel is not None:
+                        tel.emit("bg_failure", job=type(job).__name__,
+                                 error=repr(e), retries=job.retries - 1)
                     if store is not None:
                         store._stats.local().bg_gave_up += 1
                     self._fail(e, store)
@@ -330,6 +342,10 @@ class CompactionScheduler:
         """Crash path: discard all queued work and wait out the in-flight
         job, which bails at its next safe point.  Returns with the
         scheduler idle and reusable."""
+        store = self._store()
+        tel = store.config.telemetry if store is not None else None
+        if tel is not None:
+            tel.emit("bg_abort", dropped=len(self._queue))
         with self._cv:
             self._abort = True
             self._queue.clear()

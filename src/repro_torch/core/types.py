@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Iterable, List
+from typing import Dict, Iterable, List
 
 import numpy as np
 
@@ -98,6 +98,12 @@ class IOStats:
             setattr(out, f.name, getattr(self, f.name) + getattr(other, f.name))
         return out
 
+    def __radd__(self, other):
+        # sum() support: sum(shard.stats for shard in shards)
+        if other == 0:
+            return self.snapshot()
+        return self.__add__(other)
+
     @staticmethod
     def merge(stats: "Iterable[IOStats]") -> "IOStats":
         """Aggregate many stores' counters into one (the sharded facade's
@@ -105,6 +111,14 @@ class IOStats:
         out = IOStats()
         for s in stats:
             out = out + s
+        return out
+
+    def to_dict(self) -> Dict[str, float]:
+        """Counters as a dict in declaration order, plus the derived
+        ``write_amp`` (the dump ``AutumnKVCache.stats()`` uses)."""
+        out = {f.name: getattr(self, f.name)
+               for f in dataclasses.fields(IOStats)}
+        out["write_amp"] = self.write_amplification()
         return out
 
 
@@ -147,6 +161,17 @@ class StatsHub:
     def merged(self) -> IOStats:
         """Fieldwise sum of all shards (a fresh IOStats; shards unmutated)."""
         return IOStats.merge(list(self._shards))
+
+    # ------------------------------------------------- windowed-delta API
+    def snapshot(self) -> IOStats:
+        """A fresh merged capture, the pair of :meth:`delta` (as
+        ``Telemetry.snapshot``/``delta``): the online tuner senses both
+        sources the same way."""
+        return self.merged()
+
+    def delta(self, prev: IOStats) -> IOStats:
+        """Counter diffs accumulated since ``prev`` (a :meth:`snapshot`)."""
+        return self.merged().delta(prev)
 
 
 def splitmix64(x: np.ndarray) -> np.ndarray:

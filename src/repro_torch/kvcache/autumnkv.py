@@ -19,8 +19,9 @@ The store runs the reference's configuration on the port's device store:
 async compaction on two workers, a 4 MiB block cache and a 2 MiB pinned
 L0.  Only ``shards=2`` is left at its default, one store, until the
 sharded facade is ported (ROADMAP.md A8); answers, hits and pages are the
-same either way.  ``stats()`` has no ``latency`` entries (telemetry is not
-ported).
+same either way.  With a ``Telemetry`` on the store (``lsm_config=
+LSMConfig(..., telemetry=...)``) ``stats()`` adds per-op latency summaries
+and the trace's event count.
 """
 from __future__ import annotations
 
@@ -152,11 +153,12 @@ class AutumnKVCache:
     The store lives on ``device`` (``cuda:0`` by default, which must exist;
     ``"cpu"`` only on request), as the caches it serves do."""
 
-    def __init__(self, cfg: ModelConfig, batch: int, s_max: int, device=None):
+    def __init__(self, cfg: ModelConfig, batch: int, s_max: int, device=None,
+                 lsm_config: Optional[LSMConfig] = None):
         self.cfg = cfg
         self.codec = CacheCodec(cfg, batch, s_max)
         self.page = PAGE_TOKENS
-        self.db = LSMStore(store_config(), device=device)
+        self.db = LSMStore(lsm_config or store_config(), device=device)
         self.hits = 0
         self.misses = 0
         self.pages_written = 0
@@ -219,12 +221,17 @@ class AutumnKVCache:
         self.db.flush()
 
     def stats(self) -> Dict[str, Any]:
-        return dict(hits=self.hits, misses=self.misses,
-                    pages_written=self.pages_written,
-                    pages_deduped=self.pages_deduped,
-                    levels=self.db.num_levels_in_use,
-                    block_cache=self.db.cache_summary(),
-                    io=dataclasses.asdict(self.db.stats))
+        out = dict(hits=self.hits, misses=self.misses,
+                   pages_written=self.pages_written,
+                   pages_deduped=self.pages_deduped,
+                   levels=self.db.num_levels_in_use,
+                   block_cache=self.db.cache_summary(),
+                   io=self.db.stats.to_dict())
+        tel = self.db.telemetry
+        if tel is not None:
+            out["latency"] = tel.summary()
+            out["trace_events"] = len(tel.trace)
+        return out
 
     def close(self) -> None:
         """Drain and stop the store's background compaction workers; the

@@ -109,16 +109,22 @@ def test_default_device_is_cuda_and_never_the_cpu():
     assert rt.LSMStore(rt.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-OFF_DEFAULT = {"shards": 2, "use_range_views": True, "telemetry": object(),
-               "faults": object(), "tuner": object(),
-               "paranoid_checks": True, "rebalance_interval_ops": 100,
+# the sharded facade's fields, which wait for its port
+OFF_DEFAULT = {"shards": 2, "rebalance_interval_ops": 100,
                "shard_splitters": (1 << 63,), "rebalance_ratio": 1.5}
-# the fields the scheduler and the block cache brought in, at the same
-# non-default values the list above held them at
+# the fields the scheduler and the block cache brought in, and then the
+# range views, faults, telemetry and the tuner, at the non-default values
+# the list above held them at (an object field gets each package's own
+# instance, made by the function given here)
 LIFTED = {"async_compaction": True, "cache_bytes": 1 << 20,
           "pin_l0_bytes": 1 << 20, "cache_policy": "lru",
           "compaction_workers": 2, "slowdown_trigger": 8,
-          "stall_trigger": 16, "bg_max_retries": 0}
+          "stall_trigger": 16, "bg_max_retries": 0,
+          "use_range_views": True, "paranoid_checks": True,
+          "telemetry": lambda m: m.Telemetry(),
+          "faults": lambda m: m.FaultInjector(3).fail("wal_append"),
+          "tuner": lambda m: m.OnlineTuner(interval_ops=64,
+                                           min_window_ops=1)}
 
 
 @pytest.mark.parametrize("field", sorted(OFF_DEFAULT))
@@ -148,21 +154,35 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
     import repro.core as ref
     from test_torch_store import assert_same_tree
     kw = dict(memtable_bytes=1 << 11, base_level_bytes=1 << 13,
-              bits_per_key=8, bloom_allocation="monkey",
-              **{field: LIFTED[field]})
+              bits_per_key=8, bloom_allocation="monkey")
     if field in ("compaction_workers", "slowdown_trigger", "stall_trigger",
                  "bg_max_retries"):
         kw["async_compaction"] = True
     if field == "cache_policy":
         kw["cache_bytes"] = 1 << 14
-    stores = [rt.LSMStore(rt.LSMConfig(**kw), device="cpu"),
-              ref.LSMStore(ref.LSMConfig(**kw))]
+
+    def config(m):
+        value = LIFTED[field]
+        extra = {field: value(m) if callable(value) else value}
+        if field == "tuner":             # the tuner senses through telemetry
+            extra["telemetry"] = m.Telemetry()
+        return m.LSMConfig(**kw, **extra)
+
+    stores = [rt.LSMStore(config(rt.core), device="cpu"),
+              ref.LSMStore(config(ref))]
     rng = np.random.default_rng(len(field))
     keys = rng.integers(0, 400, 1500).tolist()
-    for s in stores:
-        assert getattr(s.config, field) == LIFTED[field]
+    for s, m in zip(stores, (rt.core, ref)):
+        if callable(LIFTED[field]):
+            assert type(getattr(s.config, field)).__module__ \
+                == type(LIFTED[field](m)).__module__
+        else:
+            assert getattr(s.config, field) == LIFTED[field]
         if field in ("slowdown_trigger", "bg_max_retries"):
             s._scheduler.pause()         # the backlog grows: every rotation
+        if field == "faults":            # the first write is refused once
+            with pytest.raises(m.InjectedFault):
+                s.put(keys[0], b"refused")
         for i, k in enumerate(keys):     # past the 8th is a slowdown
             s.put(k, b"%d" % i)
         if field == "bg_max_retries":    # the first flush job fails
@@ -194,13 +214,28 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
             assert s.pinned_l0.pin_l0_bytes == 1 << 20
         if field == "async_compaction":
             assert s.stats.bg_flushes > 0
+        if field == "faults":
+            assert s.config.faults.fired == {"wal_append": 1}
+        if field == "tuner":
+            s.apply_tuning()
+            assert s.config.tuner.ticks > 0
     answers = [[s.get(k) for k in range(0, 420, 7)]
                + s.multi_get(list(range(420))) + s.scan(13, 50)
+               + [s.seek(k) for k in range(0, 420, 41)]
                for s in stores]
     assert answers[0] == answers[1]
+    if field == "use_range_views":
+        assert all(s.stats.view_scans > 0 for s in stores)
+    if field == "telemetry":
+        assert [e.kind for e in stores[0].telemetry.trace.dump()] == \
+            [e.kind for e in stores[1].telemetry.trace.dump()]
+    if field == "tuner":                # the knobs move with the host's
+        for s in stores:                # timing: the data must not
+            s.close()
+        return
     if field != "bg_max_retries":       # recovery rebuilt the memtable
         assert_same_tree(*stores)
-    timing = ("stall_ns", "write_stalls") + (
+    timing = ("stall_ns", "write_stalls", "view_rebuild_ns") + (
         () if field == "slowdown_trigger" else ("write_slowdowns",))
     st = [{k: v for k, v in dataclasses.asdict(s.stats).items()
            if k not in timing} for s in stores]
@@ -570,4 +605,78 @@ def test_cuda_crash_recover_reads_back_every_fsynced_write(cuda):
         assert s.wait_for_quiesce(120)
         assert s.get(1) == b"after"
         s.close()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_paranoid_batch_verify_equals_cpu_on_the_card(cuda):
+    """The batched block verify of a paranoid multi_get on the card: the
+    same answers, counters and one pass per run as on the CPU, and on a
+    corrupted run the same lowest bad block."""
+    from repro_torch.core import run as port_run
+    cfg = rt.LSMConfig(memtable_bytes=2 << 10, base_level_bytes=4 << 10,
+                       bits_per_key=10.0, paranoid_checks=True)
+    stores = [rt.LSMStore(cfg, device=cuda), rt.LSMStore(cfg, device="cpu")]
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 4000, 3000).tolist()
+    for s in stores:
+        s.put_batch(keys, [bytes([k % 251]) * (k % 120) for k in keys])
+        s.flush()
+    probe = rng.integers(0, 4400, 20_000).tolist()
+    before = port_run.VERIFY_PASSES["batch"]
+    got = stores[0].multi_get(probe)
+    passes = port_run.VERIFY_PASSES["batch"] - before
+    assert got == stores[1].multi_get(probe)
+    assert passes <= sum(len(lvl) for lvl in stores[0]._levels)
+    assert dataclasses.asdict(stores[0].stats) == \
+        dataclasses.asdict(stores[1].stats)
+    lvl = max(i for i, lv in enumerate(stores[1]._levels) if lv)
+    bids = []
+    for s in stores:
+        bids.append(rt.core.FaultInjector(7).corrupt_run_block(
+            s._levels[lvl][0]))
+    assert bids[0] == bids[1]
+    raised = []
+    for s in stores:
+        with pytest.raises(rt.core.CorruptionError) as ei:
+            s.multi_get(probe)
+        raised.append(ei.value.block_id)
+    assert raised[0] == raised[1]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_range_view_build_equals_cpu_on_the_card(cuda):
+    """The range view built with the merge kernel on the card: the same
+    five columns as the CPU store's plain build, the same scans and seeks
+    and counters, after flushes that leave a multi-run L0."""
+    cfg = rt.LSMConfig(memtable_bytes=2 << 10, base_level_bytes=4 << 10,
+                       bits_per_key=10.0, use_range_views=True,
+                       l0_compaction_trigger=6)
+    stores = [rt.LSMStore(cfg, device=cuda), rt.LSMStore(cfg, device="cpu")]
+    rng = np.random.default_rng(4)
+    ops.reset_launch_counts()
+    for wave in range(6):
+        keys = rng.integers(0, 6000, 500).tolist()
+        for s in stores:
+            s.put_batch(keys, [b"w%d" % wave * (k % 9) for k in keys])
+            s.delete_batch(keys[:40])
+            s.flush()
+        views = [s.refresh_range_view() for s in stores]
+        for name in ("keys", "src", "rows", "live", "blocks"):
+            assert torch.equal(getattr(views[0], name).cpu(),
+                               getattr(views[1], name)), name
+    assert ops.launch_counts()["merge_pair"] > 0
+    starts = [0, 1, 2**63, 2**64 - 1] + rng.integers(0, 6000, 60).tolist()
+    for s in stores:
+        s.put(17, b"overlay")
+    assert [stores[0].scan(a, 1 + a % 90) for a in starts] == \
+        [stores[1].scan(a, 1 + a % 90) for a in starts]
+    assert [stores[0].seek(a) for a in starts] == \
+        [stores[1].seek(a) for a in starts]
+    skip = ("view_rebuild_ns",)
+    assert {k: v for k, v in dataclasses.asdict(stores[0].stats).items()
+            if k not in skip} == \
+        {k: v for k, v in dataclasses.asdict(stores[1].stats).items()
+         if k not in skip}
     torch.cuda.synchronize()
