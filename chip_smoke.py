@@ -8,8 +8,8 @@ Run from the repository root on a machine with a CUDA card:
                           [--src DIR]
 
 ``--phases`` runs a subset of
-kernels,attention,equivalence,db_bench,subsystems,durability,serve (all by
-default; a subset ends in a {"partial": true} line instead of the kernels
+kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve
+(all by default; a subset ends in a {"partial": true} line instead of the kernels
 and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
@@ -82,12 +82,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 WAL replay and scrub timed; the store kernels must launch
                 from the worker thread, and no job may be retried, given up
                 or leave the store degraded;
-     kernel launches on phases 5, 5b and 6, each store kernel's must be > 0;
+  6b. sharded — the sharded facade: (a) phase 5's load on four shards
+                under one budget of four workers (the reference's
+                micro_dbbench sharded lane), timed until quiesced beside
+                phase 6's one-shard load, builds and merges from at least
+                two workers, then phase 5's waves, seeks and scans (and
+                scans across every splitter), every answer checked and
+                held against phase 5's; (b) YCSB's hotspot (90% of 2^20
+                operations on the first tenth of 1M dense keys, half reads)
+                on four shards armed after a bulk load, beside a one-store
+                oracle: every read equal, at least one rebalance (device
+                bytes before, at the peak and after each), a snapshot from
+                before it unchanged, no pin leaked, then a crash and
+                recovery keeping every write and the routing epoch; (c)
+                smollm_135m's parameters through the delta-checkpoint
+                store on one shard and on two: the unchanged leaves'
+                chunks skipped at step 1, crash, recovery and bit-exact
+                restores;
+     kernel launches on phases 5, 5b, 6 and 6b, each store kernel's must
+     be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
                 AutumnKV: three waves of four 512-token requests (cold,
                 warm, mixed), hits, dedup and tokens checked, every kernel
                 launched on the path, AutumnKV's store on the reference's
-                knobs (async, cache, pin) drained and not degraded; then the
+                knobs (two shards, async, cache, pin) drained and not
+                degraded, each shard's worker busy ms per wave; then the
                 smoke config served on the card and on the CPU at float32,
                 tokens equal.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
@@ -1163,15 +1182,17 @@ def launch_size_report(ops) -> dict:
 
 
 def seek_oracle(run_keys, mem_keys, mem_items, starts) -> list:
-    """db_bench Seek under the reference's approximate liveness: the
-    smallest key >= start that any run holds (a deleted key's tombstone
-    too), or the memtable's first key >= start if that one is live."""
+    """db_bench Seek with the runs' approximate liveness: the smallest key
+    >= start that any run holds (a deleted key's tombstone too), or the
+    memtable's first *live* key >= start if smaller."""
+    live = np.fromiter((k for k, _, v in mem_items if v is not None),
+                       np.uint64)
     out = []
     for a, b in zip(np.searchsorted(run_keys, starts).tolist(),
-                    np.searchsorted(mem_keys, starts).tolist()):
+                    np.searchsorted(live, starts).tolist()):
         cands = [int(run_keys[a])] if a < run_keys.size else []
-        if b < mem_keys.size and mem_items[b][2] is not None:
-            cands.append(int(mem_keys[b]))
+        if b < live.size:
+            cands.append(int(live[b]))
         out.append(min(cands) if cands else None)
     return out
 
@@ -1311,6 +1332,15 @@ def probe_size_report(ops) -> dict:
             for w, ns in sorted(by_words.items())}
 
 
+def run_device_bytes(store) -> int:
+    """Device bytes of a store's run columns (every shard's)."""
+    return sum(t.numel() * t.element_size()
+               for s in getattr(store, "shards", [store])
+               for lvl in s._levels for r in lvl
+               for t in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
+                         r.fence_keys, r.block_crcs, r.bloom.bits))
+
+
 DB_BENCH = dict(policy="garnering", T=2.0, c=0.8, memtable_bytes=4 << 20,
                 base_level_bytes=10 << 20, l0_compaction_trigger=4,
                 bits_per_key=10, block_size=4096)   # LevelDB's defaults
@@ -1397,10 +1427,7 @@ def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
     record = {}
     ranges = range_phase(torch, rt, ops, store, live, np.sort(deleted), rng,
                          record=record)
-    run_bytes = sum(t.numel() * t.element_size()
-                    for lvl in store._levels for r in lvl
-                    for t in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
-                              r.fence_keys, r.block_crcs, r.bloom.bits))
+    run_bytes = run_device_bytes(store)
     out = dict(
         phase="db_bench", entries=int(keys.size), deleted=int(deleted.size),
         value_bytes=100, key_bytes=cfg.key_bytes,
@@ -2120,6 +2147,493 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
     return out
 
 
+# ------------------------------------------------------------ phase 6b
+def shard_oracle_state(ops, db):
+    """Every run key of every shard (sorted, unique) and the shards'
+    memtables' sorted entries, concatenated in shard order (the shards'
+    ranges are disjoint and ascending, so the result is sorted)."""
+    run_keys = np.unique(np.concatenate(
+        [ops.keys_from_device(r.keys) for s in db.shards
+         for lvl in s._levels for r in lvl if len(r)]))
+    mem_keys, mem_items = [], []
+    for s in db.shards:
+        k, items = s.memtable.sorted_entries()
+        mem_keys.append(k)
+        mem_items.extend(items)
+    return run_keys, np.concatenate(mem_keys), mem_items
+
+
+def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
+                         n_entries: int, phase5_reads=None,
+                         phase6=None) -> dict:
+    """(a) Phase 5's fillrandom on four shards under one budget of four
+    workers (``benchmarks/micro_dbbench.py``'s sharded lane), LevelDB's
+    defaults per shard, default uniform splitters over the u64 space; the
+    load timed until every shard quiesces; then phase 5's read waves,
+    seeks and scans, every answer checked against oracles over the sharded
+    store's own state and held against phase 5's."""
+    cfg = rt.LSMConfig(**DB_BENCH, shards=4, async_compaction=True,
+                       compaction_workers=4)
+    db = rt.core.make_store(cfg)     # cuda:0
+    n = len(db.shards)
+    keys, deleted = fill_workload(seed, n_entries)
+    sorted_keys = np.sort(keys)
+    live = np.setdiff1d(keys, deleted)
+    spent = {"flush": [0.0] * n, "compaction": [0.0] * n}
+
+    def timed(kind, i, fn):
+        def wrapper(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[kind][i] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    for i, s in enumerate(db.shards):
+        s._bg_flush = timed("flush", i, s._bg_flush)
+        s._apply = timed("compaction", i, s._apply)
+    with launches_by_thread(bloom, merge) as by_thread:
+        chunk = min(500_000, -(-keys.size // 2))
+        starts = list(range(0, keys.size, chunk))
+        t0 = time.perf_counter()
+        for i in starts[:-1]:
+            kc = keys[i:i + chunk]
+            db.put_batch(kc.tolist(), user_values(kc))
+        load_s = time.perf_counter() - t0
+        quiesce(db)
+        torch.cuda.synchronize()
+        drained_s = time.perf_counter() - t0
+        load_spent = {k: list(v) for k, v in spent.items()}
+        kc = keys[starts[-1]:]
+        db.put_batch(kc.tolist(), user_values(kc))
+        db.delete_batch(deleted.tolist())
+        quiesce(db)
+        load_launches = dict(by_thread)
+    workers = sorted({k.split("@", 1)[1] for k in load_launches
+                      if not k.startswith("bloom_probe")})
+    shards_line = [dict(shard=si, lo=str(db._routing.bounds(si)[0]),
+                        entries=sum(len(r) for lvl in s._levels
+                                    for r in lvl),
+                        levels=[sum(len(r) for r in lvl)
+                                for lvl in s._levels],
+                        run_device_bytes=run_device_bytes(s),
+                        memtable_entries=len(s.memtable),
+                        worker_flush_s=load_spent["flush"][si],
+                        worker_compaction_s=load_spent["compaction"][si],
+                        bg_flushes=s.stats.bg_flushes,
+                        bg_compactions=s.stats.bg_compactions,
+                        stall_ns=s.stats.stall_ns)
+                   for si, s in enumerate(db.shards)]
+    # phase 5's read waves
+    wave_s, checked = [], 0
+    for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
+                                             deleted)):
+        t = time.perf_counter()
+        got = db.multi_get(q.tolist())
+        dt = time.perf_counter() - t
+        if got != want:
+            bad = sum(g != x for g, x in zip(got, want))
+            raise AssertionError(f"sharded wave {w}: {bad} wrong answers")
+        if w:
+            wave_s.append(dt)
+            checked += q.size
+    waves3 = [q for w, (q, _) in zip(range(3), read_waves(
+        seed, sorted_keys, live, deleted))]
+    prof = profile_window(torch, lambda: [db.multi_get(q.tolist())
+                                          for q in waves3])
+    copies = prof.pop("copies", {})
+    # phase 5's seeks and scans (drawn here when phase 5 did not run),
+    # and scans and seeks from just below every splitter
+    if phase5_reads is not None:
+        seek_starts = phase5_reads["seek_starts"]
+        scan_starts = phase5_reads["scan_starts"]
+        lengths = phase5_reads["lengths"]
+    else:
+        rng = np.random.default_rng([seed, 10])
+        dr = np.sort(deleted)
+        seek_starts, scan_starts = (np.concatenate([
+            rng.choice(live, 1000), rng.choice(dr, 500),
+            rng.integers(0, 2**64 - 1, 500, dtype=np.uint64)])
+            for _ in range(2))
+        lengths = rng.integers(1, 101, scan_starts.size)
+    edge = np.concatenate([live[max(0, j - 60):j:6] for j in
+                           np.searchsorted(live, np.asarray(
+                               db.splitters, dtype=np.uint64)).tolist()])
+    t = time.perf_counter()
+    got_seeks = [db.seek(int(a)) for a in seek_starts.tolist()]
+    seek_s = time.perf_counter() - t
+    scan_ms, got_scans = [], []
+    for a, m in zip(scan_starts.tolist(), lengths.tolist()):
+        t = time.perf_counter()
+        got_scans.append(db.scan(a, m))
+        scan_ms.append((time.perf_counter() - t) * 1e3)
+    edge_scans = [db.scan(int(a), 100) for a in edge.tolist()]
+    edge_seeks = [db.seek(int(a) + 1) for a in edge.tolist()]
+    run_keys, mem_keys, mem_items = shard_oracle_state(ops, db)
+    want_seeks = seek_oracle(run_keys, mem_keys, mem_items, seek_starts)
+    want_edge_seeks = seek_oracle(run_keys, mem_keys, mem_items, edge + 1)
+
+    def want_scan(a, m):
+        at = int(np.searchsorted(live, a))
+        k = live[at:at + m]
+        return list(zip(k.tolist(), user_values(k)))
+
+    wrong = dict(
+        seeks=sum(g != w for g, w in zip(got_seeks, want_seeks)),
+        scans=sum(g != want_scan(a, m) for a, m, g in zip(
+            scan_starts.tolist(), lengths.tolist(), got_scans)),
+        edge_seeks=sum(g != w for g, w in zip(edge_seeks, want_edge_seeks)),
+        edge_scans=sum(g != want_scan(a, 100) for a, g in zip(
+            edge.tolist(), edge_scans)))
+    bounds = [db._routing.bounds(si) for si in range(n)]
+
+    def shard_of(k):
+        return next(si for si, (lo, hi) in enumerate(bounds) if lo <= k < hi)
+
+    across = sum(1 for g in got_scans + edge_scans
+                 if g and shard_of(g[0][0]) != shard_of(g[-1][0]))
+    def member(arr, k) -> bool:
+        i = int(np.searchsorted(arr, np.uint64(k)))
+        return i < arr.size and int(arr[i]) == k
+
+    dead = np.sort(deleted)
+    vs5 = None
+    if phase5_reads is not None:
+        # Seeks keep the runs' approximate liveness (a run's entry answers
+        # even when a memtable tombstone shadows it), so where the flush
+        # boundaries differ, so may a seek: phase 5 may answer a deleted
+        # key its runs still held while no run of the shards holds it (its
+        # put was overwritten by the delete in a shard's memtable, or a
+        # compaction dropped both).  Any other difference is a fault.
+        p5_seeks, p5_scans = phase5_reads["seeks"], phase5_reads["scans"]
+        differ = [(g, p) for g, p in zip(got_seeks, p5_seeks) if g != p]
+        vs5 = dict(scans_equal=got_scans == p5_scans,
+                   seeks_equal=len(got_seeks) - len(differ),
+                   seeks_differ=len(differ),
+                   seeks_differ_unexplained=sum(
+                       1 for g, p in differ
+                       if p is None or g is None or g < p
+                       or not member(dead, p) or member(run_keys, p)))
+    out = dict(
+        part="a_dbbench", shards=n, entries=int(keys.size),
+        config={k: v for k, v in dataclasses.asdict(cfg).items()
+                if k in ("shards", "async_compaction", "compaction_workers",
+                         "memtable_bytes", "block_size", "bits_per_key",
+                         "l0_compaction_trigger")},
+        splitters=[str(x) for x in db.splitters],
+        load_timed_entries=starts[-1], load_s=load_s,
+        load_entries_per_s=starts[-1] / load_s,
+        load_drained_s=drained_s,
+        load_drained_entries_per_s=starts[-1] / drained_s,
+        phase6_one_shard_drained_entries_per_s=(
+            None if phase6 is None
+            else phase6["load_drained_entries_per_s"]),
+        per_shard=shards_line, levels_in_use=db.num_levels_in_use,
+        run_device_bytes=run_device_bytes(db),
+        load_launches_by_thread=load_launches, launching_workers=workers,
+        read_keys=checked, read_s=sum(wave_s),
+        multi_get_keys_per_s=checked / sum(wave_s),
+        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
+        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
+        read_profile_3_waves=prof,
+        d2h_copies_per_wave=sum(c for k, c in copies.items()
+                                if "DtoH" in k) / 3,
+        h2d_copies_per_wave=sum(c for k, c in copies.items()
+                                if "HtoD" in k) / 3,
+        seeks=len(got_seeks), seeks_per_s=len(got_seeks) / seek_s,
+        scans=len(got_scans), scans_per_s=len(got_scans)
+        / (sum(scan_ms) / 1e3),
+        scan_ms_p50=float(np.percentile(scan_ms, 50)),
+        scan_ms_p99=float(np.percentile(scan_ms, 99)),
+        splitter_scans=len(edge_scans), scans_across_shards=across,
+        wrong=wrong, versus_phase5=vs5,
+        health=dict(degraded=db.degraded,
+                    bg_retries=db.stats.bg_retries,
+                    bg_gave_up=db.stats.bg_gave_up))
+    db.close()
+    bad = []
+    if any(wrong.values()):
+        bad.append(f"wrong answers {wrong}")
+    if len(workers) < 2:
+        bad.append(f"builds and merges from fewer than two workers: "
+                   f"{workers}")
+    if across == 0:
+        bad.append("no scan crossed a shard boundary")
+    if vs5 is not None and (not vs5["scans_equal"]
+                            or vs5["seeks_differ_unexplained"]):
+        bad.append(f"answers differ from phase 5's: {vs5}")
+    if any(out["health"].values()):
+        bad.append(f"health {out['health']}")
+    return out, bad
+
+
+def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
+                   n_ops: int = 1 << 20, batch: int = 4096) -> tuple:
+    """(b) YCSB's ``hotspot`` (``benchmarks/ycsb.py``'s skew gauntlet: 90%
+    of operations on the first tenth of the key space) on four shards of
+    1M dense keys, bulk-loaded unarmed then armed (``arm_rebalancing``),
+    half reads and half updates in batches of 4,096 beside a one-store
+    oracle on the same card; then a crash and recovery of the facade."""
+    base = dict(DB_BENCH, async_compaction=True, compaction_workers=4)
+    db = rt.core.make_store(rt.LSMConfig(
+        **base, shards=4,
+        shard_splitters=rt.core.uniform_splitters(4, n_keys)))
+    oracle = rt.LSMStore(rt.LSMConfig(**DB_BENCH))
+    val0 = bytes(range(100))
+    load = np.arange(n_keys, dtype=np.uint64)
+    t = time.perf_counter()
+    for i in range(0, n_keys, batch):
+        db.put_batch(load[i:i + batch].tolist(), val0)
+    db.flush()
+    quiesce(db)
+    preload_s = time.perf_counter() - t
+    for i in range(0, n_keys, batch):
+        oracle.put_batch(load[i:i + batch].tolist(), val0)
+    oracle.flush()
+    db.arm_rebalancing(max(2000, n_ops // 16), ratio=1.4)
+    snap = db.get_snapshot()
+    rng = np.random.default_rng([seed, 9])
+    probe = rng.choice(n_keys, 8192, replace=False).astype(np.uint64)
+    snap_before = db.multi_get(probe.tolist(), snapshot=snap)
+    hot = rng.random(n_ops) < 0.9
+    stream = np.where(hot, rng.integers(0, n_keys // 10, n_ops,
+                                        dtype=np.uint64),
+                      rng.integers(0, n_keys, n_ops, dtype=np.uint64))
+    events = []
+    inner = db._rebalance_to
+
+    def measured(*args):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        done = inner(*args)
+        torch.cuda.synchronize()
+        events.append(dict(landed=done, s=time.perf_counter() - t1,
+                           device_bytes_before=m0,
+                           device_bytes_peak=torch.cuda.max_memory_allocated(),
+                           device_bytes_after=torch.cuda.memory_allocated(),
+                           splitters=[str(x) for x in db.splitters]))
+        return done
+
+    db._rebalance_to = measured
+    loads = [(0, db.shard_load_ops())]
+    wrong_reads = reads = 0
+    t = time.perf_counter()
+    for wi, i in enumerate(range(0, n_ops, batch)):
+        wave = stream[i:i + batch].tolist()
+        if wi % 2 == 0:
+            val = (b"%08d" % wi) * 12 + b"hot!"
+            db.put_batch(wave, val)
+            oracle.put_batch(wave, val)
+        else:
+            got = db.multi_get(wave)
+            wrong_reads += sum(g != w for g, w in
+                               zip(got, oracle.multi_get(wave)))
+            reads += len(wave)
+        loads.append((db.rebalances, db.shard_load_ops()))
+    traffic_s = time.perf_counter() - t
+    db.flush()
+    quiesce(db)
+    oracle.flush()
+    del db._rebalance_to
+
+    def imbalance(a, b):
+        d = [y - x for x, y in zip(a, b)]
+        return max(d) * len(d) / sum(d) if sum(d) else 1.0
+
+    first = next((j for j, (r, _) in enumerate(loads) if r > 0), None)
+    last = next((j for j in range(len(loads) - 1, -1, -1)
+                 if loads[j][0] < db.rebalances), None)
+    share_before = imbalance(loads[0][1], loads[first][1]) \
+        if first else None
+    share_after = imbalance(loads[last + 1][1], loads[-1][1]) \
+        if last is not None and last + 1 < len(loads) - 1 else None
+
+    def all_keys_wrong():
+        bad = 0
+        for i in range(0, n_keys, 65_536):
+            ks = load[i:i + 65_536].tolist()
+            bad += sum(g != w for g, w in zip(db.multi_get(ks),
+                                              oracle.multi_get(ks)))
+        return bad
+
+    wrong_after_traffic = all_keys_wrong()
+    snap_after = db.multi_get(probe.tolist(), snapshot=snap)
+    db.release_snapshot(snap)
+    pins = [s.manifest.total_pin_refs() for s in db.shards]
+    epoch, splitters = db._routing.epoch, db.splitters
+    t = time.perf_counter()
+    db.crash()
+    db.recover()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    wrong_after_recovery = all_keys_wrong()
+    routing_kept = (db._routing.epoch, db.splitters) == (epoch, splitters)
+    out = dict(
+        part="b_rebalance", shards=4, keys=n_keys, operations=n_ops,
+        batch=batch, reads=reads, preload_s=preload_s,
+        traffic_s=traffic_s, ops_per_s=n_ops / traffic_s,
+        rebalances=db.rebalances, migrated_entries=db.migrated_entries,
+        migration_s=dict(db.migration_s), rebalance_events=events,
+        initial_splitters=[str(x) for x in
+                           rt.core.uniform_splitters(4, n_keys)],
+        final_splitters=[str(x) for x in db.splitters],
+        routing_epoch=epoch,
+        load_share_max_over_mean_before=share_before,
+        load_share_max_over_mean_after=share_after,
+        wrong_reads=wrong_reads, wrong_after_traffic=wrong_after_traffic,
+        snapshot_unchanged=snap_after == snap_before,
+        pins_after_release=pins, recover_s=recover_s,
+        wrong_after_recovery=wrong_after_recovery,
+        routing_survived_recovery=routing_kept)
+    bad = []
+    if wrong_reads or wrong_after_traffic or wrong_after_recovery:
+        bad.append("reads differ from the oracle")
+    if db.rebalances < 1:
+        bad.append("no rebalance")
+    if snap_after != snap_before or snap_before != [val0] * probe.size:
+        bad.append("the snapshot moved")
+    if any(pins):
+        bad.append(f"pins leaked {pins}")
+    if not routing_kept:
+        bad.append("routing epoch lost in recovery")
+    db.close()
+    return out, bad
+
+
+def leaf_bits(torch, t):
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
+    """(c) smollm_135m's parameters at full size (random from the seed)
+    through the delta-checkpoint store on the card, with one shard and
+    with two: step 0, step 1 with a few leaves changed (the other leaves'
+    chunks skipped), then crash, recovery and restores of both steps."""
+    from repro_torch.checkpoint import CHUNK_BYTES, CheckpointStore
+    from repro_torch.checkpoint import store as ck_store
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+    cfg = get_config("smollm_135m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    flat = list(ck_store._leaf_paths(params))
+    nbytes = sum(t.numel() * t.element_size() for _, t in flat)
+    chunks_of = {p: max(1, -(-t.numel() * t.element_size() // CHUNK_BYTES))
+                 for p, t in flat}
+    # a few leaves change between the steps: the final norm, the first
+    # stage's attention norm and one projection
+    changed = [p for p, _ in flat if "norm" in p][:2] \
+        + [p for p, t in flat if t.dim() >= 2][1:3]
+    step1 = {p: (t + 1.0 if p in changed else t) for p, t in flat}
+    runs, bad = [], []
+    n_chunks = sum(chunks_of.values())
+    for shards in (1, 2):
+        # two shards split the chunk ids in half (the manifests, at 2^62
+        # and up, go to the upper one)
+        lsm = dataclasses.replace(
+            ck_store.store_config(), shards=shards,
+            shard_splitters=(n_chunks // 2,) if shards > 1 else None)
+        st = CheckpointStore(lsm, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st.save(0, params)
+        torch.cuda.synchronize()
+        save0_s = time.perf_counter() - t
+        w0, k0 = st.stats_chunks_written, st.stats_deltas_skipped
+        tree1 = ck_store._unflatten(params, iter(
+            [step1[p] for p, _ in ck_store._leaf_paths(params)]))
+        t = time.perf_counter()
+        st.save(1, tree1)
+        torch.cuda.synchronize()
+        save1_s = time.perf_counter() - t
+        written = st.stats_chunks_written - w0
+        skipped = st.stats_deltas_skipped - k0
+        t = time.perf_counter()
+        st.crash()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t
+        latest = st.latest_step()
+        got, restore_s = {}, {}
+        for step in (1, 0):
+            t = time.perf_counter()
+            got[step] = st.restore(step)
+            torch.cuda.synchronize()
+            restore_s[step] = time.perf_counter() - t
+        # single-latest retention: step 0's manifest reads the chunks its
+        # unchanged leaves share with step 1, and the changed leaves'
+        # slots now hold step 1's bytes
+        exact = {step: all(
+            got[step][p].device == dev and got[step][p].dtype == t.dtype
+            and torch.equal(leaf_bits(torch, got[step][p]),
+                            leaf_bits(torch, step1[p]))
+            for p, t in flat) for step in (0, 1)}
+        levels = st.db.num_levels_in_use
+        runs.append(dict(
+            shards=shards, save0_s=save0_s,
+            save0_mb_per_s=nbytes / 1e6 / save0_s, save1_s=save1_s,
+            chunks=n_chunks, chunks_written_step1=written,
+            chunks_skipped_step1=skipped, crash_recover_s=recover_s,
+            latest_step=latest,
+            restore_s={str(k): v for k, v in restore_s.items()},
+            restore_mb_per_s={str(k): nbytes / 1e6 / v
+                              for k, v in restore_s.items()},
+            bit_exact={str(k): v for k, v in exact.items()},
+            levels_in_use=levels, run_device_bytes=run_device_bytes(st.db),
+            entries_by_shard=[s.total_entries for s in
+                              getattr(st.db, "shards", [st.db])]))
+        want_written = sum(chunks_of[p] for p in changed)
+        if written != want_written or skipped != n_chunks - want_written:
+            bad.append(f"shards={shards}: delta skip wrong "
+                       f"({written} written, {skipped} skipped)")
+        if latest != 1 or not all(exact.values()):
+            bad.append(f"shards={shards}: restore not bit-exact {exact}")
+        del st, got
+        torch.cuda.empty_cache()
+    out = dict(part="c_checkpoint", model=cfg.name,
+               params=count_params(cfg), leaves=len(flat), bytes=nbytes,
+               changed_leaves=changed, runs=runs)
+    return out, bad
+
+
+def sharded_phase(torch, rt, ops, bloom, merge, seed: int, n_entries: int,
+                  phase5_reads=None, phase6=None) -> dict:
+    """Phase 6b: the sharded facade's main paths (db_bench on four shards,
+    rebalancing under a hotspot, checkpoints), with the store kernels'
+    launches counted from zero."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    a, bad_a = sharded_dbbench_part(torch, rt, ops, bloom, merge, seed,
+                                    n_entries, phase5_reads, phase6)
+    emit({"phase": "sharded", **a})
+    torch.cuda.empty_cache()
+    b, bad_b = rebalance_part(torch, rt, seed)
+    emit({"phase": "sharded", **b})
+    torch.cuda.empty_cache()
+    c, bad_c = checkpoint_part(torch, rt, seed, torch.device("cuda:0"))
+    emit({"phase": "sharded", **c})
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    plain = dict(ops.PLAIN_CALLS)
+    out = dict(phase="sharded", part="summary",
+               s=time.perf_counter() - t,
+               launches={k: launches[k] for k in STORE_KERNELS},
+               plain_calls={k: v for k, v in plain.items() if v},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    bad = bad_a + bad_b + bad_c
+    if not all(launches[k] for k in STORE_KERNELS):
+        bad.append(f"store kernels not launched: {launches}")
+    if any(plain.values()):
+        bad.append(f"plain versions ran on the card's path: {plain}")
+    if bad:
+        raise AssertionError(f"sharded phase failed: {bad}")
+    return out
+
+
 # ------------------------------------------------------------ phase 7
 def serve_phase(torch, ops, dev, seed: int) -> dict:
     """qwen3_4b at full width over AutumnKV: the three waves of
@@ -2144,25 +2658,29 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
     gen = 16
     waves = [("cold", [shared] * 4), ("warm", [shared] * 4),
              ("mixed", [other] * 2 + [shared] * 2)]
-    # host seconds the store's worker spends in flushes and compactions,
-    # which now overlap the requests (not device-synced: no perturbation)
-    db, busy = eng.kv.db, [0.0]
+    # host seconds each shard's worker spends in flushes and compactions,
+    # which overlap the requests (not device-synced: no perturbation)
+    db = eng.kv.db
+    shards = getattr(db, "shards", [db])
+    busy = [0.0] * len(shards)
 
-    def worker_timed(fn):
+    def worker_timed(fn, i):
         def wrapper(*args):
             t = time.perf_counter()
             try:
                 return fn(*args)
             finally:
-                busy[0] += time.perf_counter() - t
+                busy[i] += time.perf_counter() - t
         return wrapper
 
-    db._bg_flush = worker_timed(db._bg_flush)
-    db._bg_compact_one = worker_timed(db._bg_compact_one)
+    for i, s in enumerate(shards):
+        s._bg_flush = worker_timed(s._bg_flush, i)
+        s._bg_compact_one = worker_timed(s._bg_compact_one, i)
     ops.reset_launch_counts()
     outs, per_wave = [], []
     for name, prompts in waves:
-        backlog, busy0 = db._scheduler.pending(), busy[0]
+        backlog = sum(s._scheduler.pending() for s in shards)
+        busy0 = list(busy)
         t = time.perf_counter()
         out = eng.serve_batch([Request(p, gen) for p in prompts])
         wall = time.perf_counter() - t
@@ -2178,7 +2696,9 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
             hits=st["hits"], pages_written=st["pages_written"],
             pages_deduped=st["pages_deduped"],
             store_jobs_queued_at_start=backlog,
-            store_worker_busy_ms=(busy[0] - busy0) * 1e3))
+            store_worker_busy_ms=sum(busy) * 1e3 - sum(busy0) * 1e3,
+            store_worker_busy_ms_by_shard=[(b - b0) * 1e3 for b, b0
+                                           in zip(busy, busy0)]))
         emit({"phase": "serve_wave", **per_wave[-1]})
         outs.append(np.stack(out))
     launches = ops.launch_counts()
@@ -2196,8 +2716,9 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
                                for o in outs),
         "no_plain_calls": not any(plain.values()),
         "every_kernel_launched": all(launches[k] > 0 for k in KERNELS),
-        "store_async_cached": eng.kv.db._scheduler is not None
+        "store_async_cached": all(s._scheduler is not None for s in shards)
         and st["block_cache"]["enabled"],
+        "store_on_two_shards": len(shards) == 2,
         "store_not_degraded": not eng.kv.db.degraded
         and st["io"]["bg_retries"] == st["io"]["bg_gave_up"] == 0,
     }
@@ -2252,7 +2773,7 @@ def serve_equivalence(torch, dev, seed: int) -> dict:
 
 
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
-          "durability", "serve")
+          "durability", "sharded", "serve")
 
 
 def main() -> int:
@@ -2335,15 +2856,25 @@ def main() -> int:
         idle = [k for k in STORE_KERNELS if launches[k] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on phase 5: {idle}")
+    phase5_reads = ctx.get("range_record")   # for phase 6b's comparison
     if "subsystems" in phases:
         by_path["subsystems"] = subsystems_phase(torch, rt, ops, args.seed,
                                                  ctx)["launches"]
     ctx.clear()
     torch.cuda.empty_cache()
+    phase6 = None
     if "durability" in phases:
-        by_path["durability"] = durability_phase(
+        phase6 = durability_phase(torch, rt, ops, bloom, merge, args.seed,
+                                  args.entries, phase5)
+        by_path["durability"] = phase6["launches"]
+        torch.cuda.empty_cache()
+    if "sharded" in phases:
+        if phase5 is not None and phase5_reads is None:
+            raise AssertionError("phase 5's range reads were not kept for "
+                                 "phase 6b's comparison")
+        by_path["sharded"] = sharded_phase(
             torch, rt, ops, bloom, merge, args.seed, args.entries,
-            phase5)["launches"]
+            phase5_reads, phase6)["launches"]
         torch.cuda.empty_cache()
     if "serve" in phases:
         serve = serve_phase(torch, ops, dev, args.seed)

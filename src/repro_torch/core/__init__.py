@@ -3,8 +3,12 @@ device, synchronous or with the background compaction scheduler.
 
 Public API:
     LSMStore, LSMConfig, make_store — the storage engine
+    ShardedLSMStore, uniform_splitters — the range-partitioned facade with
+                                    load-driven rebalancing
     CompactionScheduler           — background flush + compaction workers
-    BlockCache, PinnedLevelManager — block cache and the resident L0
+    BlockCache, BlockCacheView,
+    PinnedLevelManager            — block cache, its per-shard namespaces,
+                                    and the resident L0
     MergingIterator               — streaming range reads over the runs
     RangeView, build_range_view   — cross-run range views on the device
     make_policy, Garnering, ...   — merge policies (paper §2.3/§3.1)
@@ -22,7 +26,7 @@ Public API:
 """
 from .bloom import (BloomFilter, allocate_fprs, bits_for_fpr,
                     bloom_geometry, theoretical_fpr)
-from .cache import BlockCache, PinnedLevelManager
+from .cache import BlockCache, BlockCacheView, PinnedLevelManager
 from .convert import columns_of, store_from_columns
 from .engine import LSMConfig, LSMStore
 from .faults import (FAULT_SITES, CorruptionError, FaultInjector,
@@ -35,6 +39,8 @@ from .policy import (POLICIES, CompactionTask, Garnering, LazyLeveling,
                      Leveling, MergePolicy, QLSMBush, Tiering, make_policy)
 from .run import SortedRun, build_run, levels_bit_equal, merge_runs
 from .scheduler import CompactionScheduler
+from .sharded import (ShardedLSMStore, ShardedSnapshot, make_store,
+                      uniform_splitters)
 from .telemetry import (EventTrace, LatencyHistogram, Telemetry,
                         TelemetrySnapshot, TelemetryWindow, TraceEvent)
 from .tuner import (FOREGROUND_OPS, KNOB_BOUNDS, OnlineTuner, TunerStep,
@@ -43,23 +49,13 @@ from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats, StatsHub
 from .view import RangeView, build_range_view
 
 
-def make_store(config=None, device=None) -> LSMStore:
-    """The store a configuration asks for: an :class:`LSMStore` for
-    ``shards <= 1``.  The sharded facade (``shards > 1``) is not ported yet
-    (ROADMAP A8) and raises ``NotImplementedError``."""
-    config = config or LSMConfig()
-    if config.shards > 1:
-        raise NotImplementedError(
-            f"LSMConfig.shards={config.shards}: the sharded facade is not "
-            f"ported yet (ROADMAP A8)")
-    return LSMStore(config, device=device)
-
-
 __all__ = [
-    "LSMStore", "LSMConfig", "make_store", "MergingIterator", "IOStats",
+    "LSMStore", "LSMConfig", "make_store", "ShardedLSMStore",
+    "ShardedSnapshot", "uniform_splitters", "MergingIterator", "IOStats",
     "StatsHub", "BloomFilter", "allocate_fprs", "bits_for_fpr",
     "bloom_geometry", "theoretical_fpr", "Manifest", "RunStorage", "Version",
     "Memtable", "WriteAheadLog", "ImmutableMemtable", "BlockCache",
+    "BlockCacheView",
     "PinnedLevelManager", "CompactionScheduler", "POLICIES",
     "CompactionTask", "Garnering", "LazyLeveling", "Leveling", "MergePolicy",
     "QLSMBush", "Tiering", "make_policy", "SortedRun", "build_run",

@@ -92,9 +92,9 @@ class LSMConfig:
     gone: the store's device decides which lane runs (kernels on CUDA,
     their plain versions on the CPU).  The sharded facade's fields
     (``shards``, ``shard_splitters``, ``rebalance_interval_ops``,
-    ``rebalance_ratio``) keep the reference's names and defaults, but only
-    their defaults are supported: ``LSMStore`` raises
-    ``NotImplementedError`` for any other value rather than ignore it.
+    ``rebalance_ratio``) are read by ``make_store`` and
+    ``core.sharded.ShardedLSMStore``; a plain ``LSMStore`` ignores them,
+    as the reference's does.
     """
 
     policy: str = "garnering"
@@ -141,16 +141,13 @@ class LSMConfig:
     tuner: Optional[OnlineTuner] = None
                                         # online knob tuning at boundaries
                                         # (needs telemetry to sense)
-    # the sharded facade's (not supported by this port yet: each must stay
-    # at its default)
+    # the sharded facade's (core.sharded): key-range shards, their
+    # splitters (None: uniform over the u64 space), and load-driven
+    # rebalancing (0 ops: off; max/mean share that triggers it)
     shards: int = 1
     shard_splitters: Optional[Tuple[int, ...]] = None
     rebalance_interval_ops: int = 0
     rebalance_ratio: float = 2.0
-
-
-_UNSUPPORTED = ("shards", "shard_splitters", "rebalance_interval_ops",
-                "rebalance_ratio")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -168,15 +165,34 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _first_live_mem_key(mems: Sequence[Memtable], key: int
+                        ) -> Optional[int]:
+    """The smallest live key ``>= key`` over the memtables: each one's
+    cached sorted copy is searched once, then walked past tombstones."""
+    best = None
+    for mt in mems:
+        if len(mt) == 0:
+            continue
+        keys, items = mt.sorted_entries()
+        i = int(np.searchsorted(keys, np.uint64(key)))
+        while i < len(items) and items[i][2] is None:
+            i += 1
+        if i < len(items) and (best is None or items[i][0] < best):
+            best = items[i][0]
+    return best
+
+
+def _min_key(a: Optional[int], b: Optional[int]) -> Optional[int]:
+    return b if a is None else a if b is None else min(a, b)
+
+
 class LSMStore:
-    def __init__(self, config: Optional[LSMConfig] = None, device=None):
+    def __init__(self, config: Optional[LSMConfig] = None, device=None, *,
+                 scheduler_budget=None, scheduler_offset: int = 0):
+        # scheduler_budget / scheduler_offset: the sharded facade's wiring
+        # (one worker budget shared by every shard's scheduler, and a core
+        # offset per shard); a plain store leaves both at their defaults.
         self.config = config or LSMConfig()
-        defaults = LSMConfig()
-        for name in _UNSUPPORTED:
-            if getattr(self.config, name) != getattr(defaults, name):
-                raise NotImplementedError(
-                    f"LSMConfig.{name}={getattr(self.config, name)!r} is not "
-                    f"supported by repro_torch yet")
         self.device = resolve_device(device)
         self.policy: MergePolicy = make_policy(
             self.config.policy, T=self.config.T, c=self.config.c,
@@ -219,7 +235,8 @@ class LSMStore:
         self._scheduler: Optional[CompactionScheduler] = None
         if self.config.async_compaction:
             self._scheduler = CompactionScheduler(
-                self, self.config.compaction_workers)
+                self, self.config.compaction_workers,
+                budget=scheduler_budget, worker_offset=scheduler_offset)
         self.block_cache: Optional[BlockCache] = None
         self.pinned_l0: Optional[PinnedLevelManager] = None
         if self.config.cache_bytes > 0 or self.config.pin_l0_bytes > 0:
@@ -1045,7 +1062,9 @@ class LSMStore:
                         snapshot: Optional[Version] = None
                         ) -> List[Optional[bytes]]:
         st = self._stats.local()
-        keys_arr = np.asarray(list(keys), dtype=KEY_DTYPE)
+        keys_arr = np.asarray(
+            keys if isinstance(keys, np.ndarray) else list(keys),
+            dtype=KEY_DTYPE)
         n = int(keys_arr.size)
         st.point_reads += n
         results: List[Optional[bytes]] = [None] * n
@@ -1101,7 +1120,11 @@ class LSMStore:
         Tombstone handling is approximate, as in the reference (a cost
         probe, not a correctness surface — ``scan`` is): memtable entries
         are liveness-filtered but run entries are not, so a deleted key
-        stops shadowing once its tombstone flushes.
+        stops shadowing once its tombstone flushes.  Each memtable gives
+        its first *live* entry ``>= key``: a memtable tombstone never hides
+        a live memtable key behind it (the reference takes each memtable's
+        first entry and drops it when it is a tombstone, and so can return
+        a key past a live one).
         """
         return self._span("seek", self._seek_impl, key, snapshot)
 
@@ -1120,11 +1143,7 @@ class LSMStore:
             if view is not None:
                 st.view_scans += 1
                 best = view.seek(int(key), st, cache)
-                for mt in mems:
-                    for k, s, v in mt.scan(int(key), limit=1):
-                        if v is not None and (best is None or k < best):
-                            best = k
-                return best
+                return _min_key(best, _first_live_mem_key(mems, int(key)))
             st.view_fallbacks += 1
         runs = [r for r in self._runs_newest_first(self._read_state(snapshot))
                 if len(r)]
@@ -1138,11 +1157,7 @@ class LSMStore:
                                   faults=cfg.faults)
                 if best is None or k < best:
                     best = k
-        for mt in mems:
-            for k, s, v in mt.scan(int(key), limit=1):
-                if v is not None and (best is None or k < best):
-                    best = k
-        return best
+        return _min_key(best, _first_live_mem_key(mems, int(key)))
 
     def iterator(self, snapshot: Optional[Version] = None,
                  chunk: int = 512) -> MergingIterator:
@@ -1531,11 +1546,17 @@ class LSMStore:
         """Logical entry count (newest versions only, tombstones excluded)."""
         return self._live_profile()[0]
 
+    def _space_profile(self) -> Tuple[int, int]:
+        """(physical bytes stored, logical live bytes): the two terms of
+        space amplification, apart so the sharded facade sums shards before
+        dividing."""
+        mems = self._mem_sources()      # memtables before levels, as above
+        phys = sum(r.data_bytes for lvl in self._levels for r in lvl) \
+            + sum(mt.size_bytes for mt in mems)
+        return phys, self._live_profile()[1]
+
     def space_amplification(self) -> float:
         """Physical bytes stored / logical bytes of the live newest versions
         (RocksDB's definition; 1.0 when nothing is live)."""
-        mems = self._mem_sources()
-        phys = sum(r.data_bytes for lvl in self._levels for r in lvl) \
-            + sum(mt.size_bytes for mt in mems)
-        logical = self._live_profile()[1]
+        phys, logical = self._space_profile()
         return phys / logical if logical else 1.0

@@ -180,10 +180,17 @@ class CompactionScheduler:
         self._abort = False
         self._stop = False
         self._failure: Optional[BaseException] = None
+        # Optional facade hook, called by the worker that just drained the
+        # queue (outside the condition).  The sharded facade points it at
+        # its imbalance check; it only sets flags: a rebalance quiesces
+        # this very scheduler, so running one here would deadlock.
+        self.on_idle: Optional[Callable[[], None]] = None
         self._threads = []
         for i in range(self.workers):
-            t = threading.Thread(target=self._loop, daemon=True,
-                                 name=f"autumn-compaction-{i}")
+            # one name per worker across a facade's shards (offset i each)
+            t = threading.Thread(
+                target=self._loop, daemon=True,
+                name=f"autumn-compaction-{self._worker_offset + i}")
             t.start()
             self._threads.append(t)
 
@@ -270,7 +277,14 @@ class CompactionScheduler:
                     if cont is not None and not self._abort \
                             and self._failure is None:
                         self._queue.appendleft(cont)
+                    drained = not self._queue and self._inflight == 0
                     self._cv.notify_all()
+                hook = self.on_idle
+                if drained and hook is not None and not self._abort:
+                    try:
+                        hook()     # flag-setting only; outside the condition
+                    except Exception:
+                        pass       # a broken hook must not kill the worker
 
     def _fail(self, e: BaseException, store=None) -> None:
         """Poison the pipeline and turn the store read-only: degraded

@@ -16,12 +16,12 @@ device and crosses to the host in one copy; writing one back is one copy
 the other way, into the cache in place.
 
 The store runs the reference's configuration on the port's device store:
-async compaction on two workers, a 4 MiB block cache and a 2 MiB pinned
-L0.  Only ``shards=2`` is left at its default, one store, until the
-sharded facade is ported (ROADMAP.md A8); answers, hits and pages are the
-same either way.  With a ``Telemetry`` on the store (``lsm_config=
-LSMConfig(..., telemetry=...)``) ``stats()`` adds per-op latency summaries
-and the trace's event count.
+two shards under one budget of two background workers, a 4 MiB block
+cache shared by the shards and a 2 MiB pinned L0.  Page keys lie below
+2^63 and state records above it, so the default splitter (2^63) puts
+every page on shard 0 and every state record on shard 1.  With a
+``Telemetry`` on the store (``lsm_config=LSMConfig(..., telemetry=...)``)
+``stats()`` adds per-op latency summaries and the trace's event count.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import LSMConfig, LSMStore
+from ..core import LSMConfig, make_store
 from ..core.types import splitmix64
 from ..models import model as M
 from ..models.config import ModelConfig
@@ -56,15 +56,15 @@ def chain_hashes(tokens: np.ndarray, page: int = PAGE_TOKENS) -> List[int]:
 
 
 def store_config() -> LSMConfig:
-    """The reference's AutumnKV store configuration but ``shards=2``,
-    which waits for the sharded facade: hot page blocks served from the
-    cache, L0 pinned so fresh inserts stay resident, and page-insert bursts
-    after prefill returning without paying flush or compaction."""
+    """The reference's AutumnKV store configuration: hot page blocks served
+    from the shared cache, L0 pinned so fresh inserts stay resident,
+    page-insert bursts after prefill returning without paying flush or
+    compaction, and two shards under one budget of two workers."""
     return LSMConfig(policy="garnering", T=2.0, c=0.8, memtable_bytes=1 << 20,
                      base_level_bytes=8 << 20, bits_per_key=10,
                      bloom_allocation="monkey",
                      cache_bytes=4 << 20, pin_l0_bytes=2 << 20,
-                     async_compaction=True, compaction_workers=2)
+                     async_compaction=True, shards=2, compaction_workers=2)
 
 
 def _kv_axis(logical: Tuple[Optional[str], ...]) -> Optional[int]:
@@ -158,7 +158,7 @@ class AutumnKVCache:
         self.cfg = cfg
         self.codec = CacheCodec(cfg, batch, s_max)
         self.page = PAGE_TOKENS
-        self.db = LSMStore(lsm_config or store_config(), device=device)
+        self.db = make_store(lsm_config or store_config(), device=device)
         self.hits = 0
         self.misses = 0
         self.pages_written = 0
@@ -177,8 +177,9 @@ class AutumnKVCache:
                      template: Pytree) -> List[Optional[Pytree]]:
         """Full-prompt hits of a serving wave: for each prompt, a copy of
         ``template`` holding its stored cache, or None.  Every prompt's
-        state and page keys are resolved with ONE ``LSMStore.multi_get``;
-        hit/miss semantics and counters are the reference's."""
+        state and page keys are resolved with ONE ``multi_get`` (split into
+        one sub-wave a shard); hit/miss semantics and counters are the
+        reference's."""
         metas: List[Tuple[List[int], bool]] = []
         all_keys: List[int] = []
         for tokens in prompts:

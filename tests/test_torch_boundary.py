@@ -1,5 +1,5 @@
 """The port's boundaries: no JAX and no ``repro`` inside it, no silent CPU
-fallback, no unsupported option accepted and ignored.
+fallback, every configuration field acting as in the reference.
 
 The checks marked ``cuda`` need a CUDA card and ``nvcc``: they build the
 kernels, hold each against its plain version on the card, and hold a CUDA
@@ -18,7 +18,6 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.core.engine import _UNSUPPORTED
 from repro_torch.kernels import attention, bloom, merge, ops
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
@@ -109,14 +108,32 @@ def test_default_device_is_cuda_and_never_the_cpu():
     assert rt.LSMStore(rt.LSMConfig(), device="cpu").device.type == "cpu"
 
 
-# the sharded facade's fields, which wait for its port
-OFF_DEFAULT = {"shards": 2, "rebalance_interval_ops": 100,
-               "shard_splitters": (1 << 63,), "rebalance_ratio": 1.5}
-# the fields the scheduler and the block cache brought in, and then the
-# range views, faults, telemetry and the tuner, at the non-default values
-# the list above held them at (an object field gets each package's own
-# instance, made by the function given here)
-LIFTED = {"async_compaction": True, "cache_bytes": 1 << 20,
+def test_sharded_facade_default_device_is_cuda_and_never_the_cpu():
+    """``make_store`` of a sharded configuration means ``cuda:0`` for the
+    facade and every shard, as a plain store does; the CPU only on
+    request."""
+    cfg = rt.core.LSMConfig(shards=2)
+    if torch.cuda.is_available():
+        db = rt.core.make_store(cfg)
+        assert db.device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rt.core.make_store(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rt.core.ShardedLSMStore(cfg, device="cuda")
+    db = rt.core.make_store(cfg, device="cpu")
+    assert isinstance(db, rt.core.ShardedLSMStore)
+    assert [s.device.type for s in db.shards] == ["cpu", "cpu"]
+
+
+# the sharded facade's fields (they need shards=2 to act on anything)
+FACADE = {"shards": 2, "shard_splitters": (200,),
+          "rebalance_interval_ops": 100, "rebalance_ratio": 1.5}
+# every field that has a non-default value to act on: the scheduler and the
+# block cache, the range views, faults, telemetry, the tuner and the
+# sharded facade's (an object field gets each package's own instance, made
+# by the function given here)
+LIFTED = {**FACADE, "async_compaction": True, "cache_bytes": 1 << 20,
           "pin_l0_bytes": 1 << 20, "cache_policy": "lru",
           "compaction_workers": 2, "slowdown_trigger": 8,
           "stall_trigger": 16, "bg_max_retries": 0,
@@ -127,30 +144,14 @@ LIFTED = {"async_compaction": True, "cache_bytes": 1 << 20,
                                            min_window_ops=1)}
 
 
-@pytest.mark.parametrize("field", sorted(OFF_DEFAULT))
-def test_unsupported_config_fields_raise(field):
-    assert field in _UNSUPPORTED
-    cfg = rt.LSMConfig(**{field: OFF_DEFAULT[field]})
-    with pytest.raises(NotImplementedError, match=field):
-        rt.LSMStore(cfg, device="cpu")
-
-
-def test_unsupported_list_covers_every_non_default_field():
-    assert set(OFF_DEFAULT) == set(_UNSUPPORTED)
-    assert not set(LIFTED) & set(_UNSUPPORTED)
-    names = {f.name for f in dataclasses.fields(rt.LSMConfig)}
-    assert set(LIFTED) | set(OFF_DEFAULT) <= names
-    assert "use_pallas_bloom" not in names
-    assert "use_pallas_merge" not in names
-
-
 @pytest.mark.parametrize("field", sorted(LIFTED))
 def test_lifted_config_field_takes_effect_as_in_the_reference(field):
     """One lifted field at its non-default value, on a CPU store and on
     the reference store with the same configuration (the scheduler's knobs
     with ``async_compaction``, the policy with a cache, where alone they
-    act on nothing in either): the field acts the same way on both, and
-    both end with the same tree, answers and counters."""
+    act on nothing in either; the facade's with ``shards=2``), built
+    through ``make_store``: the field acts the same way on both, and both
+    end with the same tree, answers and counters."""
     import repro.core as ref
     from test_torch_store import assert_same_tree
     kw = dict(memtable_bytes=1 << 11, base_level_bytes=1 << 13,
@@ -160,6 +161,10 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
         kw["async_compaction"] = True
     if field == "cache_policy":
         kw["cache_bytes"] = 1 << 14
+    if field in FACADE and field != "shards":
+        kw["shards"] = 2
+    if field == "rebalance_ratio":   # shard 1 takes 85% of the load: 1.7
+        kw.update(shard_splitters=(60,), rebalance_interval_ops=300)
 
     def config(m):
         value = LIFTED[field]
@@ -168,8 +173,8 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
             extra["telemetry"] = m.Telemetry()
         return m.LSMConfig(**kw, **extra)
 
-    stores = [rt.LSMStore(config(rt.core), device="cpu"),
-              ref.LSMStore(config(ref))]
+    stores = [rt.core.make_store(config(rt.core), device="cpu"),
+              ref.make_store(config(ref))]
     rng = np.random.default_rng(len(field))
     keys = rng.integers(0, 400, 1500).tolist()
     for s, m in zip(stores, (rt.core, ref)):
@@ -219,6 +224,12 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
         if field == "tuner":
             s.apply_tuning()
             assert s.config.tuner.ticks > 0
+        if field == "shards":
+            assert len(s.shards) == 2
+        if field == "shard_splitters":
+            assert s.splitters == (200,)
+        if field in ("rebalance_interval_ops", "rebalance_ratio"):
+            assert s.rebalances > 0
     answers = [[s.get(k) for k in range(0, 420, 7)]
                + s.multi_get(list(range(420))) + s.scan(13, 50)
                + [s.seek(k) for k in range(0, 420, 41)]
@@ -233,8 +244,13 @@ def test_lifted_config_field_takes_effect_as_in_the_reference(field):
         for s in stores:                # timing: the data must not
             s.close()
         return
+    if field in FACADE:
+        assert stores[0].splitters == stores[1].splitters
+        assert stores[0].rebalances == stores[1].rebalances
     if field != "bg_max_retries":       # recovery rebuilt the memtable
-        assert_same_tree(*stores)
+        for p, r in zip(getattr(stores[0], "shards", stores[:1]),
+                        getattr(stores[1], "shards", stores[1:])):
+            assert_same_tree(p, r)
     timing = ("stall_ns", "write_stalls", "view_rebuild_ns") + (
         () if field == "slowdown_trigger" else ("write_slowdowns",))
     st = [{k: v for k, v in dataclasses.asdict(s.stats).items()
@@ -680,3 +696,53 @@ def test_range_view_build_equals_cpu_on_the_card(cuda):
         {k: v for k, v in dataclasses.asdict(stores[1].stats).items()
          if k not in skip}
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_facade_equals_cpu_facade(cuda):
+    """A two-shard facade on the card and one on the CPU after the same
+    script: the same answers and IOStats, before and after ``rebalance_to``
+    moves the splitter across the sign bit of the order map (the migration
+    splits the exported device columns on the card), and the same shard
+    contents after it."""
+    from test_torch_store import gen_ops
+    cfg = dict(shards=2, memtable_bytes=2 << 10, base_level_bytes=4 << 10,
+               bits_per_key=10.0, shard_splitters=(2000,))
+    stores = [rt.core.make_store(rt.LSMConfig(**cfg), device=cuda),
+              rt.core.make_store(rt.LSMConfig(**cfg), device="cpu")]
+    assert all(s.device == cuda for s in stores[0].shards)
+    for kind, args in gen_ops(11, 3000):
+        for s in stores:
+            getattr(s, kind)(*args)
+    starts = [0, 1, 1999, 2000, 2**63 - 1, 2**63, 2**64 - 1] \
+        + list(range(0, 4100, 97))
+
+    def answers(s):
+        return ([s.scan(a, 1 + a % 60) for a in starts],
+                [s.seek(a) for a in starts], s.multi_get(starts),
+                s.scan_scalar(7, 40), [s.get(a) for a in starts[:20]])
+
+    for target in (None, 2**63, 3000):
+        if target is not None:
+            for s in stores:
+                assert s.rebalance_to([target])
+        assert answers(stores[0]) == answers(stores[1])
+        assert dataclasses.asdict(stores[0].stats) == \
+            dataclasses.asdict(stores[1].stats)
+        assert [sh.scan(0, 1 << 20) for sh in stores[0].shards] == \
+            [sh.scan(0, 1 << 20) for sh in stores[1].shards]
+    assert stores[0].migrated_entries == stores[1].migrated_entries > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_make_store_sharded_lands_on_cuda_0(cuda):
+    db = rt.core.make_store(rt.LSMConfig(shards=2))
+    assert isinstance(db, rt.core.ShardedLSMStore)
+    assert db.device == torch.device("cuda:0")
+    assert all(s.device == torch.device("cuda:0") for s in db.shards)
+    db.put_batch(list(range(100)) + [2**63 + 5], b"v")
+    db.flush()
+    assert db.multi_get([5, 2**63 + 5, 7000]) == [b"v", b"v", None]
+    assert all(r.keys.device.type == "cuda"
+               for s in db.shards for lvl in s._levels for r in lvl)

@@ -715,3 +715,51 @@ def test_recover_with_telemetry_matches_plain_twin():
     assert_same_tree(out[0][0], out[1][0])
     assert_same_tree(out[0][1], out[1][1])
     assert out[0][2:] == out[1][2:]
+
+
+def test_sharded_degradation_is_per_shard():
+    """A dead pipeline in one shard rejects that shard's writes only; the
+    sibling keeps full service, reads serve everywhere, and crash plus
+    recover restores writes, as in the reference's facade."""
+    outcomes = []
+    for P, m in ((PORT, pc), (REF, ref)):
+        f = P.FaultInjector().fail("flush_write", times=-1)
+        kw = {"device": "cpu"} if P.port else {}
+        db = m.make_store(cfg(P, shards=2, async_compaction=True, faults=f,
+                              bg_max_retries=0), **kw)
+        try:
+            for i in range(4000):            # all keys < 2^63: shard 0
+                try:
+                    db.put(i % 100, b"v" * 50)
+                except P.StoreDegradedError:
+                    break
+            else:
+                db.flush()
+                try:
+                    db.wait_for_quiesce(30)
+                except RuntimeError:
+                    pass
+            assert db.degraded
+            assert db.degraded_shards() == [0]
+            f.clear()
+            with pytest.raises(P.StoreDegradedError):
+                db.put(5, b"rejected")       # shard 0: read-only
+            assert db.get(5) == b"v" * 50    # reads still serve
+            big = (1 << 63) + 5
+            db.put(big, b"sibling ok")       # shard 1: full service
+            assert db.get(big) == b"sibling ok"
+            db.crash()
+            db.recover()
+            assert db.degraded_shards() == []
+            db.put(5, b"restored")
+            assert db.get(5) == b"restored"
+            db.flush()
+            assert db.wait_for_quiesce(30)
+            report = db.scrub()
+            assert report and all("shard" in r and not r["bad_blocks"]
+                                  for r in report)
+            outcomes.append((db.multi_get(list(range(100)) + [big]),
+                             sorted({r["shard"] for r in report})))
+        finally:
+            db.close()
+    assert outcomes[0] == outcomes[1]

@@ -17,9 +17,11 @@ import zlib
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import repro.core as ref
 import repro_torch as rt
+from _seek_plain import seek_plain, seek_with_reference_fault
 from repro.core import iterator as ref_iterator
 from repro.core.bloom import BloomFilter as RefBloomFilter
 from repro.core.types import TOMBSTONE_LEN
@@ -501,3 +503,75 @@ def test_manifest_pins_match_reference():
         assert m.total_pin_refs() == 0
         m.pin(m.current())
         assert m.total_pin_refs() == 1
+
+
+# ------------------------------------------------ seek: first live memtable key
+def test_seek_takes_the_first_live_memtable_key():
+    """The minimal input of the reference's ``seek`` fault: a memtable
+    tombstone (2616) before a live memtable key (2620), a run key after
+    them (2622).  The reference skips 2620 and answers 2622, pinned here
+    as its fault; the port answers 2620, the first live key, as ``scan``
+    does.  Both through the run walk and through a range view."""
+    for views in (False, True):
+        cfg = dict(use_range_views=views)
+        port = rt.LSMStore(rt.LSMConfig(**cfg), device="cpu")
+        reference = ref.LSMStore(ref.LSMConfig(**cfg))
+        for db in (port, reference):
+            db.put(2622, b"a")
+            db.flush()
+            db.delete(2616)
+            db.put(2620, b"b")
+            assert db.scan(2615, 1) == [(2620, b"b")]
+        assert reference.seek(2615) == 2622          # the reference's fault
+        assert seek_with_reference_fault(reference, 2615) == 2622
+        assert port.seek(2615) == 2620 == seek_plain(reference, 2615)
+        timing_free = [{k: v for k, v in dataclasses.asdict(db.stats).items()
+                        if not k.endswith("_ns")} for db in (port, reference)]
+        assert timing_free[0] == timing_free[1]      # the same cost charged
+        assert port.seek(2617) == 2620 and port.seek(2621) == 2622
+
+
+@given(st.integers(0, 10_000), st.booleans(), st.booleans())
+@settings(max_examples=12, deadline=None)
+def test_seek_lies_between_key_and_first_live_key(seed, views, async_):
+    """Property, on random mixes of memtable (active and rotated) and run
+    entries with tombstones in both: ``key <= seek(key) <= the first live
+    key >= key`` (a flushed tombstone may still answer, as a cost probe),
+    and ``seek`` is the plain definition on the reference store fed the
+    same operations, whose own answer differs only where its fault
+    shows."""
+    rng = np.random.default_rng(seed)
+    cfg = dict(memtable_bytes=1 << 10, base_level_bytes=1 << 12,
+               bits_per_key=8, use_range_views=views)
+    port = rt.LSMStore(rt.LSMConfig(async_compaction=async_, **cfg),
+                       device="cpu")
+    reference = ref.LSMStore(ref.LSMConfig(**cfg))
+    space = 150
+    try:
+        for i in range(600):
+            k = int(rng.integers(0, space))
+            if rng.random() < 0.4:
+                both = [db.delete(k) for db in (port, reference)]
+            else:
+                both = [db.put(k, b"%d" % i) for db in (port, reference)]
+            if rng.random() < 0.02:
+                both = [db.flush() for db in (port, reference)]
+            if i % 100 == 99:
+                if async_:
+                    assert port.wait_for_quiesce(60)
+                for key in rng.integers(0, space + 5, 12).tolist():
+                    got = port.seek(key)
+                    live = port.scan(key, 1)
+                    assert live == reference.scan(key, 1)
+                    if live:
+                        assert got is not None and key <= got <= live[0][0]
+                    elif got is not None:
+                        assert got >= key
+                    assert got == seek_plain(reference, key), key
+                    want = reference.seek(key)
+                    if want != got:
+                        assert want == seek_with_reference_fault(
+                            reference, key)
+        del both
+    finally:
+        port.close()

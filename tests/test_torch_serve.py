@@ -88,26 +88,34 @@ def test_engine_tokens_equal_the_reference_engine(arch):
         port.close()
 
 
-def test_store_config_is_the_reference_but_shards():
-    """AutumnKV's store runs the reference's configuration (async
-    compaction on two workers, a 4 MiB cache, a 2 MiB pin), all but
-    ``shards=2``, which waits for the sharded facade."""
+def test_store_config_equals_the_reference():
+    """AutumnKV's store runs the reference's configuration whole: two
+    shards under one budget of two workers, async compaction, a 4 MiB
+    shared cache and a 2 MiB pin, built through ``make_store``."""
+    from repro_torch.core import ShardedLSMStore
     from repro_torch.kvcache.autumnkv import store_config
     ref_kv = RefKV(ref_get_smoke("qwen3_4b"), 1, 64)
     try:
         want = dataclasses.asdict(ref_kv.db.config)
+        ref_shape = (len(ref_kv.db.shards), ref_kv.db.splitters,
+                     ref_kv.db._budget.size)
     finally:
         ref_kv.close()
     got = dataclasses.asdict(store_config())
-    assert want.pop("shards") == 2 and got.pop("shards") == 1
     for name in ("use_pallas_bloom", "use_pallas_merge"):
         want.pop(name)
     assert got == want
     kv = AutumnKVCache(get_smoke("qwen3_4b"), 1, 64, device="cpu")
-    assert kv.db._scheduler is not None and kv.db.block_cache is not None
-    assert len(kv.db._scheduler._threads) == 2
+    assert isinstance(kv.db, ShardedLSMStore)
+    assert (len(kv.db.shards), kv.db.splitters, kv.db._budget.size) == \
+        ref_shape
+    assert dataclasses.asdict(kv.db.config) == got
+    for s in kv.db.shards:
+        assert s._scheduler is not None and s.block_cache is not None
+        assert len(s._scheduler._threads) == 1
+        assert s.block_cache.cache is kv.db.block_cache
     kv.close()
-    assert kv.db._scheduler is None
+    assert all(s._scheduler is None for s in kv.db.shards)
 
 
 # ------------------------------------ the reference's serving tests, ported

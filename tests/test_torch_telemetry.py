@@ -174,7 +174,11 @@ def _counters(db):
             if not k.endswith("_ns")}
 
 
-@pytest.mark.parametrize("shards", [1])
+def _trees(db):
+    return db.shards if hasattr(db, "shards") else [db]
+
+
+@pytest.mark.parametrize("shards", [1, 2])
 def test_disabled_mode_is_noop_identity(shards):
     def build(m, tel, **kw):
         cfg = m.LSMConfig(memtable_bytes=1 << 14, bits_per_key=8,
@@ -188,8 +192,9 @@ def test_disabled_mode_is_noop_identity(shards):
     r_off, r_on, r_ref = (_mixed_workload(db)
                           for db in (db_off, db_on, db_ref))
     assert r_off == r_on == r_ref
-    assert_same_tree(db_off, db_ref)
-    assert_same_tree(db_on, db_ref)
+    for p_off, p_on, r in zip(_trees(db_off), _trees(db_on), _trees(db_ref)):
+        assert_same_tree(p_off, r)
+        assert_same_tree(p_on, r)
     assert _counters(db_off) == _counters(db_on) == _counters(db_ref)
     tel = db_on.telemetry
     assert tel.histogram("get").n == 300
@@ -202,11 +207,29 @@ def test_disabled_mode_is_noop_identity(shards):
         {op: h.n for op, h in rtel.histograms().items()}
 
 
-def test_make_store_refuses_shards():
-    with pytest.raises(NotImplementedError, match="A8"):
-        pc.make_store(pc.LSMConfig(shards=2), device="cpu")
-    assert isinstance(pc.make_store(pc.LSMConfig(), device="cpu"),
-                      pc.LSMStore)
+def test_sharded_aggregates_one_telemetry():
+    """Every shard records into the facade's one Telemetry (live config
+    sharing): the same histogram counts and event kinds as the
+    reference's facade."""
+    got = []
+    for m, kw in ((pc, {"device": "cpu"}), (ref, {})):
+        tel = m.Telemetry()
+        db = m.make_store(m.LSMConfig(shards=3, memtable_bytes=1 << 14,
+                                      telemetry=tel), **kw)
+        assert isinstance(db, m.ShardedLSMStore)
+        assert db.telemetry is tel
+        assert all(s.telemetry is tel for s in db.shards)
+        db.put_batch(list(range(3000)), b"x" * 30)
+        db.flush()
+        for k in (1, 1001, 2001, 2999):
+            db.get(k)
+        assert tel.histogram("get").n >= 4
+        assert tel.histogram("flush").n >= 3
+        snap = db.get_snapshot()
+        db.release_snapshot(snap)
+        got.append(({op: h.n for op, h in tel.histograms().items()},
+                     [e.kind for e in tel.trace.dump()]))
+    assert got[0] == got[1]
 
 
 # ------------------------------------------------------- lost-update hammer

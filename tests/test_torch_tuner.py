@@ -360,3 +360,93 @@ def test_restore_best_settles_incumbent_within_bounds():
     assert tun.restore_best(other) == {}
     db.close()
     other.close()
+
+
+def test_tuned_sharded_matches_single_oracle():
+    """A tuned async two-shard port facade (the tuner bound to the facade,
+    ticking at all-shards-idle boundaries) reads what the reference's
+    plain store reads; knobs stay in bounds."""
+    tel = Telemetry()
+    cfg = tuned_cfg(shards=2, async_compaction=True, compaction_workers=2,
+                    telemetry=tel,
+                    tuner=OnlineTuner(interval_ops=64, min_window_ops=1,
+                                      tolerance=0.0))
+    db = pc.make_store(cfg, device="cpu")
+    assert isinstance(db, pc.ShardedLSMStore)
+    assert db.config.tuner.owner is db
+    twin = ref.LSMStore(ref.LSMConfig(**plain_kw()))
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1 << 40, 3_000, dtype=np.uint64)
+    for wave in range(6):
+        lo, hi = wave * 500, (wave + 1) * 500
+        for k in keys[lo:hi]:
+            v = f"w{wave}k{int(k)}".encode()
+            db.put(int(k), v)
+            twin.put(int(k), v)
+        for k in keys[max(0, lo - 200):lo:7]:
+            assert db.get(int(k)) == twin.get(int(k))
+        assert db.wait_for_quiesce(60)
+        db.apply_tuning()
+    probe = keys[::5]
+    assert db.multi_get(probe) == twin.multi_get(probe)
+    start = int(keys.min())
+    assert db.scan(start, 200) == twin.scan(start, 200)
+    assert db.scan_scalar(start, 200) == twin.scan_scalar(start, 200)
+    assert db.config.tuner.ticks > 0
+    assert_in_bounds(db.config.tuner.steps)
+    assert set(db._tuning_actuators()) == set(ref.make_store(
+        ref.LSMConfig(**plain_kw(shards=2, async_compaction=True,
+                                 cache_bytes=1 << 14,
+                                 pin_l0_bytes=1 << 13)))._tuning_actuators())
+    db.close()
+    twin.close()
+
+
+def test_facade_compact_to_shape_matches_oracle():
+    tel = Telemetry()
+    tun = OnlineTuner(interval_ops=8, min_window_ops=1, tolerance=0.0)
+    db = pc.make_store(tuned_cfg(telemetry=tel, tuner=tun, shards=2,
+                                 async_compaction=True), device="cpu")
+    twin = ref.LSMStore(ref.LSMConfig(**plain_kw()))
+    for i in range(400):
+        v = f"w{i}".encode()
+        db.put(i % 150, v)
+        twin.put(i % 150, v)
+    assert db.wait_for_quiesce(120)
+    db.retune_policy(T=6.0, c=0.5)
+    assert all((s.policy.T, s.policy.c) == (6.0, 0.5) for s in db.shards)
+    db.compact_to_shape()
+    twin.flush()
+    assert_reads_identical(db, twin, range(150))
+    assert db.compact_to_shape() == 0          # in shape: a no-op
+    db.close()
+    twin.close()
+
+
+def test_facade_tuning_rules_shift_cache_budgets_as_the_reference():
+    """The facade's tick-time rule (cache budgets toward the shards with
+    the most misses in the window) and its worker-budget and cache-split
+    actuators give the reference's budgets on the same traffic."""
+    out = []
+    for m, kw in ((pc, {"device": "cpu"}), (ref, {})):
+        db = m.make_store(m.LSMConfig(**plain_kw(
+            shards=2, shard_splitters=(200,), async_compaction=True,
+            compaction_workers=2, cache_bytes=1 << 14,
+            pin_l0_bytes=1 << 12)), **kw)
+        for k in range(400):
+            db.put(k, b"v%d" % k * 40)
+        db.flush()
+        assert db.wait_for_quiesce(60)
+        db._tuning_rules(None, None)            # opens the window
+        db.multi_get(list(range(0, 200)) * 3)   # misses in shard 0 only
+        db.multi_get(list(range(200, 210)))
+        db._tuning_rules(None, None)
+        budgets = [s.block_cache.budget_bytes for s in db.shards]
+        assert budgets[0] > budgets[1] and sum(budgets) == 1 << 14
+        assert db.resize_worker_budget(1) and db.config.compaction_workers == 1
+        db.set_cache_split(1 << 13)
+        out.append((budgets, [s.block_cache.budget_bytes for s in db.shards],
+                    [s.pinned_l0.pin_l0_bytes for s in db.shards],
+                    db.block_cache.capacity_bytes, db.cache_summary()))
+        db.close()
+    assert out[0] == out[1]
