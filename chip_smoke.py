@@ -8,8 +8,8 @@ Run from the repository root on a machine with a CUDA card:
                           [--src DIR]
 
 ``--phases`` runs a subset of
-kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve
-(all by default; a subset ends in a {"partial": true} line instead of the kernels
+kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
+families (all by default; a subset ends in a {"partial": true} line instead of the kernels
 and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
@@ -36,6 +36,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 its device time by kernel; the bloom probe at the shapes a
                 read wave gives it (PROBE_SHAPES), warm and L2-cold, beside
                 builds of it that gather one position or all k at a time;
+                both attention kernels also at the model families' shapes
+                (``kernel_family`` lines: dh 256 at G 4 and 10, windowed
+                with a live band at 1,024 tokens over a window of 512,
+                non-causal over 1,600 image tokens and 1,500 audio frames
+                in prefill and at one decode query);
   4. equivalence — one seeded op sequence on a CUDA store and a CPU store,
                 with a snapshot taken mid-load: bit-identical trees,
                 IOStats, multi_get answers, and scans, seeks and iterator
@@ -108,7 +113,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 knobs (two shards, async, cache, pin) drained and not
                 degraded, each shard's worker busy ms per wave; then the
                 smoke config served on the card and on the CPU at float32,
-                tokens equal.
+                tokens equal;
+  8. families — gemma3_1b at full size through phase 7's waves and checks,
+                then two 1,024-token prompts sharing a page with them (hit
+                equal to miss: the windowed rings kept whole in the state
+                record); a cold and a warm wave of recurrentgemma_2b,
+                mamba2_130m (no attention kernel launched),
+                granite_moe_1b_a400m, minicpm_2b over AutumnKV,
+                whisper_medium with stubbed frames and no prefix cache,
+                mixtral_8x22b at 2 of 56 layers and llama32_vision_90b at
+                4 + 1 of 100 (``reduced``; neither fits one card whole),
+                warm equal to cold, no plain call; every family's smoke
+                config on the card and the CPU at float32, tokens equal.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -753,6 +769,149 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
             raise AssertionError(f"paged_attention {name} at P {P_long} "
                                  f"differs from its plain version: {err}")
         del kp, vp
+    return rows
+
+
+# the model families' attention shapes (phase 8's configurations, batch 4,
+# 512-token prompts, s_max 1024, and its long-prompt case): (label, B, Sq,
+# Sk, H, KH, dh, causal, window, dtypes)
+FAMILY_FLASH = (
+    ("gemma3_1b prefill", 4, 512, 512, 4, 1, 256, True, 512,
+     ("bfloat16", "float32")),
+    ("gemma3_1b long-prompt prefill", 1, 1024, 1024, 4, 1, 256, True, 512,
+     ("bfloat16",)),
+    ("recurrentgemma_2b prefill", 4, 512, 512, 10, 1, 256, True, 2048,
+     ("bfloat16",)),
+    ("llama32_vision_90b cross-attention", 4, 512, 1600, 64, 8, 128, False,
+     0, ("bfloat16",)),
+    ("llama32_vision_90b cross-attention decode", 4, 1, 1600, 64, 8, 128,
+     False, 0, ("bfloat16",)),
+    ("whisper_medium encoder", 4, 1500, 1500, 16, 16, 64, False, 0,
+     ("bfloat16",)),
+    ("whisper_medium cross-attention decode", 4, 1, 1500, 16, 16, 64, False,
+     0, ("bfloat16",)),
+)
+# (label, B, H, KH, dh, page, pages a row, lengths, dtypes): gemma3's
+# 512-slot local ring (full, one row just past a wrap) and recurrentgemma's
+# ring of min(2048, s_max 1024) slots after a 528-token step
+FAMILY_PAGED = (
+    ("gemma3_1b local decode", 4, 4, 1, 256, 64, 8, [512, 512, 512, 200],
+     ("bfloat16", "float32")),
+    ("recurrentgemma_2b local decode", 4, 10, 1, 256, 64, 16,
+     [528, 528, 528, 528], ("bfloat16",)),
+)
+
+
+def valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    n = 0
+    for qi in range(Sq):
+        hi = min(Sk - 1, qi) if causal else Sk - 1
+        lo = max(0, qi - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def sdpa_mask_args(torch, Sq: int, Sk: int, causal: bool, window: int,
+                   dev) -> dict:
+    """SDPA's mask arguments for ``flash_plain``'s mask: ``is_causal`` where
+    the window lets every causal key through, else an explicit boolean band
+    (keys in ``(q - window, q]``, or ``> q - window`` when non-causal)."""
+    if window <= 0 or (causal and window >= Sq):
+        return dict(is_causal=causal)
+    qpos = torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    ok = kpos > qpos - window
+    if causal:
+        ok &= kpos <= qpos
+    return dict(attn_mask=ok)
+
+
+def family_attention_rows(torch, attention, dev, seed: int) -> list:
+    """K4 and K3 at the shapes the model families give them (dh 256,
+    windowed, non-causal, Sq != Sk), each against its plain version (2e-5
+    f32, 2e-2 bf16) with the same bits twice, timed as graph replays
+    beside SDPA and its bound."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    rows = []
+    for label, B, Sq, Sk, H, KH, dh, causal, window, dts in FAMILY_FLASH:
+        for name in dts:
+            dt = getattr(torch, name)
+            q = torch.randn(B, Sq, H, dh, generator=g, device=dev).to(dt)
+            k = torch.randn(B, Sk, KH, dh, generator=g, device=dev).to(dt)
+            v = torch.randn(B, Sk, KH, dh, generator=g, device=dev).to(dt)
+            kw = dict(causal=causal, window=window)
+            got = attention.flash_cuda(q, k, v, **kw)
+            err = float((got.float() - attention.flash_plain(
+                q, k, v, **kw).float()).abs().max())
+            same_bits(torch, f"flash_attention {label} {name} run twice",
+                      got, attention.flash_cuda(q, k, v, **kw))
+            peak = BF16_FLOPS_PER_S if name == "bfloat16" else ALU_OPS_PER_S
+            row = dict(
+                kernel="flash_attention",
+                shape=f"{label}: B{B} Sq{Sq} Sk{Sk} H{H} KH{KH} dh{dh} "
+                      f"{'causal' if causal else 'non-causal'}"
+                      f"{f' window {window}' if window else ''} {name}",
+                max_abs_err=err, tolerance=ATTN_TOL[name],
+                deterministic=True,
+                ms=time_ms(torch, lambda: attention.flash_cuda(q, k, v, **kw),
+                           graph=True),
+                plain_ms=time_ms(torch, lambda: attention.flash_plain(
+                    q, k, v, **kw), 3, graph=True),
+                library_ms=sdpa_ms(torch, q.transpose(1, 2),
+                                   k.transpose(1, 2), v.transpose(1, 2),
+                                   **sdpa_mask_args(torch, Sq, Sk, causal,
+                                                    window, dev)),
+                **bound((2 * q.numel() + 2 * k.numel()) * dt.itemsize,
+                        4 * dh * B * H * valid_pairs(Sq, Sk, causal, window),
+                        peak))
+            emit({"phase": "kernel_family", **row})
+            rows.append(row)
+            if not err <= ATTN_TOL[name]:
+                raise AssertionError(f"flash_attention {label} {name} "
+                                     f"differs from its plain version: {err}")
+            del q, k, v, got
+    for label, B, H, KH, dh, page, P, lens, dts in FAMILY_PAGED:
+        for name in dts:
+            dt = getattr(torch, name)
+            q = torch.randn(B, H, dh, generator=g, device=dev).to(dt)
+            kp = torch.randn(B * P, page, KH, dh, generator=g,
+                             device=dev).to(dt)
+            vp = torch.randn(kp.shape, generator=g, device=dev).to(dt)
+            bt = torch.arange(B * P, dtype=torch.int32,
+                              device=dev).view(B, P)    # the model's view
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = attention.paged_cuda(q, kp, vp, bt, ln)
+            err = float((got.float() - attention.paged_plain(
+                q, kp, vp, bt, ln).float()).abs().max())
+            same_bits(torch, f"paged_attention {label} {name} run twice",
+                      got, attention.paged_cuda(q, kp, vp, bt, ln))
+            n_tok = int(ln.sum())
+            kg = kp.reshape(B, P * page, KH, dh).transpose(1, 2)
+            vg = vp.reshape(B, P * page, KH, dh).transpose(1, 2)
+            mask = (torch.arange(P * page, device=dev)[None]
+                    < ln[:, None])[:, None, None]
+            peak = BF16_FLOPS_PER_S if name == "bfloat16" else ALU_OPS_PER_S
+            row = dict(
+                kernel="paged_attention",
+                shape=f"{label}: B{B} H{H} KH{KH} dh{dh} page{page} P{P} "
+                      f"lengths {lens} {name}",
+                max_abs_err=err, tolerance=ATTN_TOL[name],
+                deterministic=True,
+                ms=time_ms(torch, lambda: attention.paged_cuda(
+                    q, kp, vp, bt, ln), 50, graph=True),
+                plain_ms=time_ms(torch, lambda: attention.paged_plain(
+                    q, kp, vp, bt, ln), 10, graph=True),
+                library_ms=sdpa_ms(torch, q[:, :, None], kg, vg,
+                                   attn_mask=mask),
+                **bound((2 * q.numel() + 2 * n_tok * KH * dh) * dt.itemsize
+                        + bt.numel() * 4 + B * 4, 4 * H * dh * n_tok, peak))
+            emit({"phase": "kernel_family", **row})
+            rows.append(row)
+            if not err <= ATTN_TOL[name]:
+                raise AssertionError(f"paged_attention {label} {name} "
+                                     f"differs from its plain version: {err}")
+            del q, kp, vp, kg, vg, got
     return rows
 
 
@@ -2635,20 +2794,29 @@ def sharded_phase(torch, rt, ops, bloom, merge, seed: int, n_entries: int,
 
 
 # ------------------------------------------------------------ phase 7
-def serve_phase(torch, ops, dev, seed: int) -> dict:
-    """qwen3_4b at full width over AutumnKV: the three waves of
+ATTN_KERNELS = ("flash_attention", "paged_attention")
+
+
+def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
+               n_waves: int = 3, extras=None, use_prefix_cache: bool = True,
+               reduced=None, profile: bool = False, after=None) -> dict:
+    """One configuration at full width (random weights from the seed) over
+    AutumnKV, or with no prefix cache: the waves of
     examples/serve_autumnkv.py at 4 x 512-token prompts (8 pages each) and
-    16 decoded tokens, every check of the reference's semantics."""
-    from repro_torch.configs import get_config
+    16 decoded tokens (cold, warm, then mixed when ``n_waves`` is 3), every
+    check of the reference's semantics, the launches of this run alone.
+    ``after(eng, rng, shared)`` runs more requests on the same engine and
+    returns (records, checks).  The engine is freed before returning."""
     from repro_torch.models import count_params, init_params
+    from repro_torch.models.blocks import SELF_ATTN_KINDS
     from repro_torch.serve import Request, ServeEngine
-    cfg = get_config("qwen3_4b")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          dev)
-    eng = ServeEngine(cfg, params, batch=4, s_max=1024, device=dev)
+    eng = ServeEngine(cfg, params, batch=4, s_max=1024,
+                      use_prefix_cache=use_prefix_cache, device=dev)
     del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
@@ -2657,11 +2825,11 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
     other = rng.integers(0, cfg.vocab, 512, dtype=np.int32)
     gen = 16
     waves = [("cold", [shared] * 4), ("warm", [shared] * 4),
-             ("mixed", [other] * 2 + [shared] * 2)]
+             ("mixed", [other] * 2 + [shared] * 2)][:n_waves]
     # host seconds each shard's worker spends in flushes and compactions,
     # which overlap the requests (not device-synced: no perturbation)
-    db = eng.kv.db
-    shards = getattr(db, "shards", [db])
+    db = eng.kv.db if eng.kv is not None else None
+    shards = getattr(db, "shards", [db]) if db is not None else []
     busy = [0.0] * len(shards)
 
     def worker_timed(fn, i):
@@ -2673,68 +2841,99 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
                 busy[i] += time.perf_counter() - t
         return wrapper
 
-    for i, s in enumerate(shards):
-        s._bg_flush = worker_timed(s._bg_flush, i)
-        s._bg_compact_one = worker_timed(s._bg_compact_one, i)
+    for i, sh in enumerate(shards):
+        sh._bg_flush = worker_timed(sh._bg_flush, i)
+        sh._bg_compact_one = worker_timed(sh._bg_compact_one, i)
     ops.reset_launch_counts()
     outs, per_wave = [], []
     for name, prompts in waves:
-        backlog = sum(s._scheduler.pending() for s in shards)
+        backlog = sum(sh._scheduler.pending() for sh in shards)
         busy0 = list(busy)
         t = time.perf_counter()
-        out = eng.serve_batch([Request(p, gen) for p in prompts])
+        out = eng.serve_batch([Request(p, gen) for p in prompts], extras)
         wall = time.perf_counter() - t
         tm = eng.last_timings
-        st = eng.kv.stats()
+        st = eng.kv.stats() if eng.kv is not None else {}
         per_wave.append(dict(
-            wave=name, wall_ms=wall * 1e3, lookup_ms=tm["lookup_s"] * 1e3,
+            model=cfg.name, wave=name, wall_ms=wall * 1e3,
+            lookup_ms=tm["lookup_s"] * 1e3,
             prefill_ms=tm["prefill_s"] * 1e3, insert_ms=tm["insert_s"] * 1e3,
             decode_step_ms_p50=float(np.percentile(tm["decode_step_s"], 50)
                                      * 1e3),
             decoded_tokens_per_s=len(prompts) * gen
             / sum(tm["decode_step_s"]),
-            hits=st["hits"], pages_written=st["pages_written"],
-            pages_deduped=st["pages_deduped"],
+            hits=st.get("hits", 0), pages_written=st.get("pages_written", 0),
+            pages_deduped=st.get("pages_deduped", 0),
             store_jobs_queued_at_start=backlog,
             store_worker_busy_ms=sum(busy) * 1e3 - sum(busy0) * 1e3,
             store_worker_busy_ms_by_shard=[(b - b0) * 1e3 for b, b0
                                            in zip(busy, busy0)]))
-        emit({"phase": "serve_wave", **per_wave[-1]})
+        emit({"phase": f"{phase}_wave", **per_wave[-1]})
         outs.append(np.stack(out))
     launches = ops.launch_counts()
     plain = dict(ops.PLAIN_CALLS)
-    quiesce(eng.kv.db)
-    st = eng.kv.stats()
+    hits = [w["hits"] for w in per_wave]
+    want_hits = [0, 4, 6][:n_waves] if db is not None else [0] * n_waves
     checks = {
-        "hits_0_4_6": [w["hits"] for w in per_wave] == [0, 4, 6],
+        f"hits_{'_'.join(map(str, want_hits))}": hits == want_hits,
         "warm_equals_cold": np.array_equal(outs[1], outs[0]),
-        "mixed_hits_equal_cold": np.array_equal(outs[2][2:], outs[0][2:]),
-        "mixed_misses_agree": np.array_equal(outs[2][0], outs[2][1]),
-        "pages_written_16": st["pages_written"] == 16,
-        "pages_deduped_32": st["pages_deduped"] == 32,
         "tokens_in_vocab": all(((o >= 0) & (o < cfg.vocab)).all()
                                for o in outs),
         "no_plain_calls": not any(plain.values()),
-        "every_kernel_launched": all(launches[k] > 0 for k in KERNELS),
-        "store_async_cached": all(s._scheduler is not None for s in shards)
-        and st["block_cache"]["enabled"],
-        "store_on_two_shards": len(shards) == 2,
-        "store_not_degraded": not eng.kv.db.degraded
-        and st["io"]["bg_retries"] == st["io"]["bg_gave_up"] == 0,
     }
-    # the device's idle share over one more warm wave, under the profiler,
-    # with the store's background work drained (quiesced above)
-    prof = profile_window(torch, lambda: eng.serve_batch(
-        [Request(shared, gen)] * 4))
-    prof["decode_step_ms_p50"] = float(np.percentile(
-        eng.last_timings["decode_step_s"], 50) * 1e3)
-    out = dict(phase="serve", model=cfg.name, params=count_params(cfg),
-               batch=4, s_max=1024, prompt_tokens=512, gen_len=gen,
-               setup_s=setup_s, waves=per_wave, warm_wave_profile=prof,
-               levels=st["levels"], store_io={k: v for k, v in
-                                              st["io"].items() if v},
-               block_cache=st["block_cache"],
-               launches=launches, plain_calls=plain,
+    if n_waves == 3:
+        checks["mixed_hits_equal_cold"] = np.array_equal(outs[2][2:],
+                                                         outs[0][2:])
+        checks["mixed_misses_agree"] = np.array_equal(outs[2][0], outs[2][1])
+    st = {}
+    if db is not None:
+        quiesce(db)
+        st = eng.kv.stats()
+        written, deduped = (16, 32) if n_waves == 3 else (8, 24)
+        checks[f"pages_written_{written}"] = st["pages_written"] == written
+        checks[f"pages_deduped_{deduped}"] = st["pages_deduped"] == deduped
+        checks["store_async_cached"] = all(
+            sh._scheduler is not None for sh in shards) \
+            and st["block_cache"]["enabled"]
+        checks["store_on_two_shards"] = len(shards) == 2
+        checks["store_not_degraded"] = not db.degraded \
+            and st["io"]["bg_retries"] == st["io"]["bg_gave_up"] == 0
+    if n_waves == 3 and db is not None:
+        checks["every_kernel_launched"] = all(launches[k] > 0
+                                              for k in KERNELS)
+    else:
+        if db is not None:
+            checks["store_kernels_launched"] = \
+                launches["bloom_build"] > 0 and launches["bloom_probe"] > 0
+        if any(k in SELF_ATTN_KINDS for k in cfg.layer_pattern):
+            checks["attention_kernels_launched"] = all(
+                launches[k] > 0 for k in ATTN_KERNELS)
+        else:
+            checks["no_attention_kernel"] = not any(
+                launches[k] for k in ATTN_KERNELS)
+    out = dict(phase=phase, model=cfg.name, params=count_params(cfg),
+               layers=cfg.n_layers, batch=4, s_max=1024, prompt_tokens=512,
+               gen_len=gen, prefix_cache=db is not None,
+               extras=sorted(extras or {}), setup_s=setup_s, waves=per_wave)
+    if reduced:
+        out["reduced"] = reduced
+    if after is not None:
+        records, more = after(eng, rng, shared)
+        out.update(records)
+        checks.update(more)
+    if profile:
+        # the device's idle share over one more warm wave, under the
+        # profiler, with the store's background work drained (above)
+        prof = profile_window(torch, lambda: eng.serve_batch(
+            [Request(shared, gen)] * 4, extras))
+        prof["decode_step_ms_p50"] = float(np.percentile(
+            eng.last_timings["decode_step_s"], 50) * 1e3)
+        out["warm_wave_profile"] = prof
+    if st:
+        out.update(levels=st["levels"],
+                   store_io={k: v for k, v in st["io"].items() if v},
+                   block_cache=st["block_cache"])
+    out.update(launches=launches, plain_calls=plain,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                checks=checks)
     emit(out)
@@ -2743,37 +2942,122 @@ def serve_phase(torch, ops, dev, seed: int) -> dict:
     torch.cuda.empty_cache()
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"serve phase failed: {bad}")
+        raise AssertionError(f"{phase} {cfg.name} failed: {bad}")
     return out
 
 
-def serve_equivalence(torch, dev, seed: int) -> dict:
-    """The qwen3_4b smoke config served on the card (kernels) and on the
-    CPU (plain versions) at float32 from the same weights: equal tokens."""
+def serve_phase(torch, ops, dev, seed: int) -> dict:
+    """qwen3_4b at full width over AutumnKV: cold, warm and mixed waves."""
+    from repro_torch.configs import get_config
+    return serve_cell(torch, ops, dev, seed, get_config("qwen3_4b"), "serve",
+                      profile=True)
+
+
+def serve_equivalence(torch, dev, seed: int, arch: str = "qwen3_4b"
+                      ) -> dict:
+    """A smoke config served on the card (kernels) and on the CPU (plain
+    versions) at float32 from the same weights (and stubbed extras):
+    equal tokens."""
     from repro_torch.configs import get_smoke
+    from repro_torch.data import stub_frontend_inputs
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
-    cfg = dataclasses.replace(get_smoke("qwen3_4b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    extras = stub_frontend_inputs(cfg, 2, seed) or None
     rng = np.random.default_rng(seed)
     a, b = (rng.integers(0, cfg.vocab, 128, dtype=np.int32)
             for _ in range(2))
     tokens = []
     for device in (dev, "cpu"):
         eng = ServeEngine(cfg, params, batch=2, s_max=160, device=device)
-        tokens.append([np.stack(eng.serve_batch([Request(p, 40)] * 2))
+        tokens.append([np.stack(eng.serve_batch([Request(p, 40)] * 2,
+                                                extras))
                        for p in (a, b, a)])
+        eng.close()
     same = all(np.array_equal(x, y) for x, y in zip(*tokens))
     out = dict(phase="serve_equivalence", model=cfg.name,
                compute_dtype="float32", same_tokens=same)
     emit(out)
     if not same:
-        raise AssertionError("CUDA serving differs from CPU serving")
+        raise AssertionError(f"CUDA serving of {cfg.name} differs from CPU "
+                             f"serving")
+    return out
+
+
+# ------------------------------------------------------------ phase 8
+def long_prompt_case(eng, rng, shared):
+    """gemma3_1b: two 1,024-token prompts sharing their first page with
+    the 512-token prompt of the waves (which fits the 512-slot local
+    rings; these wrap them), served miss, miss, hit: the hit decodes the
+    miss's tokens (the reference's ring-page fault, repaired)."""
+    from repro_torch.serve import Request
+    tail = [rng.integers(0, eng.cfg.vocab, 960, dtype=np.int32)
+            for _ in range(2)]
+    long1, long2 = (np.concatenate([shared[:64], t]) for t in tail)
+    hits0 = eng.kv.hits
+    t = time.perf_counter()
+    got = [eng.serve_batch([Request(p, 16)])[0] for p in (long1, long2,
+                                                          long2)]
+    wall = time.perf_counter() - t
+    quiesce(eng.kv.db)
+    records = dict(long_prompt=dict(
+        tokens=1024, wall_ms=wall * 1e3, hits=eng.kv.hits - hits0,
+        wrapped_ring_extents=eng.kv.codec.wrapped_extents(1024)))
+    return records, {"long_prompt_hit_equals_miss":
+                     np.array_equal(got[2], got[1]),
+                     "long_prompt_one_hit": eng.kv.hits - hits0 == 1}
+
+
+# every other configuration after the headline gemma3_1b: (arch, layers
+# kept or None for all, extras, prefix cache)
+FAMILY_CELLS = (
+    ("recurrentgemma_2b", None, False, True),
+    ("mamba2_130m", None, False, True),
+    ("granite_moe_1b_a400m", None, False, True),
+    ("minicpm_2b", None, False, True),
+    ("whisper_medium", None, True, False),
+    ("mixtral_8x22b", 2, False, True),
+    ("llama32_vision_90b", 5, True, False),
+)
+
+
+def families_phase(torch, ops, dev, seed: int) -> dict:
+    """Phase 8: gemma3_1b at full size through phase 7's three waves and
+    the long-prompt case, then one cold and one warm wave of every other
+    configuration at full width (mixtral and llama32 at cut depth: neither
+    fits one card whole), then every family's smoke config on the card and
+    on the CPU."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import stub_frontend_inputs
+    cells = [serve_cell(torch, ops, dev, seed, get_config("gemma3_1b"),
+                        "families", profile=True, after=long_prompt_case)]
+    for arch, keep, with_extras, prefix in FAMILY_CELLS:
+        cfg = get_config(arch)
+        reduced = None
+        if keep is not None:
+            reduced = dict(layers=f"{keep} of {cfg.n_layers}",
+                           pattern=list(cfg.layer_pattern[:keep]))
+            cfg = dataclasses.replace(cfg, n_layers=keep,
+                                      layer_pattern=cfg.layer_pattern[:keep])
+        extras = stub_frontend_inputs(cfg, 4, seed) if with_extras else None
+        cells.append(serve_cell(torch, ops, dev, seed, cfg, "families",
+                                n_waves=2, extras=extras,
+                                use_prefix_cache=prefix, reduced=reduced))
+    for arch in ARCH_IDS:
+        serve_equivalence(torch, dev, seed, arch)
+    launches = {}
+    for c in cells:
+        for k, n in c["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out = dict(phase="families", models=[c["model"] for c in cells],
+               launches=launches)
+    emit(out)
     return out
 
 
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
-          "durability", "sharded", "serve")
+          "durability", "sharded", "serve", "families")
 
 
 def main() -> int:
@@ -2838,6 +3122,7 @@ def main() -> int:
                                  variants))
     if "attention" in phases:
         rows.update(attention_rows(torch, attention, dev, args.seed))
+        family_attention_rows(torch, attention, dev, args.seed)
     torch.cuda.empty_cache()
     if "equivalence" in phases:
         equivalence_phase(torch, rt, rng, args.equiv_entries)
@@ -2884,6 +3169,9 @@ def main() -> int:
         # phase
         launches.update({k: serve["launches"][k] for k in KERNELS
                          if k not in STORE_KERNELS})
+    if "families" in phases:
+        by_path["families"] = families_phase(torch, ops, dev,
+                                             args.seed)["launches"]
     if list(phases) != list(PHASES):
         emit({"phase": "done", "s": time.perf_counter() - t_start})
         print(smi, flush=True)

@@ -5,8 +5,9 @@ The store's runs live on the device; the bloom probe, the bloom build and
 the compaction pair merge are hand-written CUDA kernels for Hopper
 (``csrc/``), each beside its plain PyTorch version in ``kernels/``.  The
 serving path (``serve.ServeEngine`` over ``kvcache.AutumnKVCache`` and the
-``models`` of the dense ``attn`` family) runs prefill attention on the
-flash-attention kernel and decode attention on the paged-attention kernel.
+``models`` of every family of the reference) runs prefill, cross-attention
+and encoder attention on the flash-attention kernel and self-attention
+decode on the paged-attention kernel.
 """
 from .core import LSMConfig, LSMStore, columns_of, store_from_columns
 

@@ -1,10 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
-Counterpart of ``repro.configs``.  Each ported ``<arch>.py`` defines CONFIG
-(the full-size configuration) and SMOKE (a reduced same-family config for
-CPU tests), copied from the reference.  Only the dense ``attn`` family is
-ported so far; the other architectures raise ``NotImplementedError``
-naming the ROADMAP.md item that ports their layer kinds.
+Counterpart of ``repro.configs``.  Each ``<arch>.py`` defines CONFIG (the
+full-size configuration) and SMOKE (a reduced same-family config for CPU
+tests), copied from the reference; every architecture of ``ARCH_IDS`` is
+ported.
 """
 from __future__ import annotations
 
@@ -25,20 +24,6 @@ ARCH_IDS = [
     "llama32_vision_90b",
 ]
 
-PORTED = ("qwen3_4b", "smollm_135m")
-
-# ROADMAP.md section A, item 11 (the model zoo), by layer family
-NOT_PORTED = {
-    "minicpm_2b": "A11 (dense attn family: config not copied yet)",
-    "gemma3_1b": "A11 step 2 (lattn)",
-    "granite_moe_1b_a400m": "A11 step 3 (MoE)",
-    "mixtral_8x22b": "A11 step 3 (MoE)",
-    "mamba2_130m": "A11 step 4 (ssd)",
-    "recurrentgemma_2b": "A11 step 5 (rglru)",
-    "llama32_vision_90b": "A11 step 6 (xattn/encoder)",
-    "whisper_medium": "A11 step 6 (xattn/encoder)",
-}
-
 
 def _canon(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
@@ -46,11 +31,7 @@ def _canon(arch: str) -> str:
 
 def _module(arch: str):
     arch = _canon(arch)
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: ROADMAP.md "
-            f"{NOT_PORTED[arch]}")
-    if arch not in PORTED:
+    if arch not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}")
     return importlib.import_module(f"{__name__}.{arch}")
 

@@ -43,13 +43,16 @@
 // until the epilogue divides by max(l, 1e-30) and writes bf16 with 16-byte
 // stores.  K/V tiles of 64 keys arrive by 16-byte cp.async into a 2-stage
 // ring, the next tile's copy in flight while the current one is computed;
-// every tile row is dh padded with zeros to DP (16, 32, 64 or 128) and
+// every tile row is dh padded with zeros to DP (16, 32, 64, 128 or 256) and
 // XOR-swizzled in 16-byte chunks so that ldmatrix reads no two chunks from
 // one bank group.  Rows not 16-byte aligned (dh % 8 != 0) are loaded
-// element by element instead.  Q waits in the ring's second stage until
-// its fragments are in registers, so a block holds 64 KB at DP 128 and
-// three blocks share an SM; on the causal diagonal a warp skips the 16-key
-// groups past its last row.  The grid puts the query tile on its slowest
+// element by element instead.  Up to DP 128, Q waits in the ring's second
+// stage until its fragments are in registers, so a block holds 64 KB at
+// DP 128 and three blocks share an SM.  At DP 256 the O accumulators alone
+// take 128 fp32 registers a thread, and Q's fragments would add 64: Q gets
+// its own 32 KB of shared memory beside the 128 KB ring and is re-read by
+// ldmatrix at every k-step, and one block runs per SM (160 KB).  On the
+// causal diagonal a warp skips the 16-key groups past its last row.  The grid puts the query tile on its slowest
 // axis, reversed, so the heaviest causal tiles start first.  The one
 // numerical change from the reference: P is rounded to bf16 before the
 // P V product (l is summed from the fp32 P).  Each row's result depends
@@ -58,7 +61,8 @@
 // f32 flash stays on the CUDA cores (fp32 FMAs):
 // TF32 tensor-core products keep about 10 mantissa bits and cannot hold
 // float32's 2e-5 contract.  One block owns 64 query rows; 8 warps take 8
-// rows each, lane c scoring keys c and c + 32.
+// rows each, lane c scoring keys c and c + 32 and owning output columns
+// c, c + 32, ... (dh up to 256: 199 KB of shared memory at dh 256).
 //
 // Paged decode: bound by bytes.  One decode step reads each live K/V row
 // once (8.6 MB at the serving shape) for 34 MFLOP.  One block per (KV
@@ -68,10 +72,14 @@
 // (kernels/attention.py `paged_splits`, which also ignores B, so that a
 // row's rounding never depends on the rest of the batch).  A block serves
 // the whole GQA group of its KV head, so each page is read once per group;
-// it copies 64-position tiles of K and V as they are stored (bf16 or f32,
-// no fp32 staging) by 16-byte cp.async into a 2-stage ring, scores them
+// it copies tiles of K and V as they are stored (bf16 or f32, no fp32
+// staging) by 16-byte cp.async into a 2-stage ring (64 positions a tile,
+// 32 where a row is wider than 512 bytes: f32 at dh > 128), scores them
 // with one half-warp per key, runs the online softmax for its split and
-// writes (m, l, acc) in fp32 to scratch.  A block whose first page lies at
+// writes (m, l, acc) in fp32 to scratch.  A block holds at most
+// kMaxPairs x 128 (head, 16-byte chunk) outputs: G x ceil(dh x size / 16)
+// <= 1,024, which the wrapper checks (G 10 at dh 256 is 320 in bf16 and
+// 640 in f32).  A block whose first page lies at
 // or past its row's ceil(length / page) returns at once (length 0 keeps
 // all P pages: the reference's uniform average).  The combine kernel then
 // merges each row's live splits in increasing order: an empty split never
@@ -129,7 +137,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 constexpr int kTile = 64;           // query rows per block, keys per tile
 constexpr int kFlashWarps = 8;
 constexpr int kRowsPerWarp = kTile / kFlashWarps;
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;         // both kernels' head-dim limit
 constexpr int kDhPerLane = kMaxDh / 32;
 
 // The visited key range [k_begin, k_end) of the query tile [q0, q0 + rows);
@@ -337,8 +345,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Q's fragments live in registers up to DP 128; at DP 256 they are read
+// from shared memory at each k-step (see the header).
 template <int DP>
-__global__ void __launch_bounds__(kMmaWarps * 32, 3)
+__host__ __device__ constexpr bool q_in_registers() { return DP <= 128; }
+template <int DP>
+__host__ __device__ constexpr int flash_smem_bytes() {
+  return 4 * kBN * DP * 2 + (q_in_registers<DP>() ? 0 : kBM * DP * 2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaWarps * 32, (DP <= 128 ? 3 : 1))
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
@@ -349,11 +366,13 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   constexpr int TB = kBN * DP * 2;   // bytes per K or V tile
   constexpr int NT = kBN / 8;        // n-tiles of S per warp
   constexpr int DT = DP / 8;         // n-tiles of O per warp
+  constexpr bool QREG = q_in_registers<DP>();
   static_assert(kBM <= 2 * kBN, "Q and the output fit in one stage");
   // stage s holds K at smem_mma + 2 s TB and V right after it; Q waits in
-  // stage 1 until its fragments are loaded, the output leaves via stage 0
+  // stage 1 until its fragments are loaded (QREG) or has its own region
+  // after the ring; the output leaves via stage 0
   extern __shared__ __align__(128) char smem_mma[];
-  char* sQ = smem_mma + 2 * TB;
+  char* sQ = smem_mma + (QREG ? 2 : 4) * TB;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // heaviest first
   const int kh = h / (H / KH);
@@ -361,7 +380,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const int gq = lane >> 2, t4 = lane & 3;   // mma fragment row, column pair
   const int mi = lane >> 3, ri = lane & 7;   // ldmatrix matrix, row
 
-  for (int i = tid; i < 4 * TB / 16; i += blockDim.x)
+  for (int i = tid; i < flash_smem_bytes<DP>() / 16; i += blockDim.x)
     reinterpret_cast<int4*>(smem_mma)[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
@@ -392,20 +411,22 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   for (int j = 0; j < DT; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[DP / 16][4];
+  uint32_t qf[QREG ? DP / 16 : 1][4];
   const int qi0 = q0 + warp * 16 + gq, qi1 = qi0 + 8;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int st = (kt - kt_begin) & 1;
     cp_async_wait_all();
     __syncthreads();                 // tile kt landed; stage st^1 is free
-    if (kt == kt_begin) {
+    if constexpr (QREG) {
+      if (kt == kt_begin) {
 #pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks)
-        ldmatrix_x4(smem_u32(sQ + chunk_off<C>(warp * 16 + (lane & 15),
-                                               ks * 2 + (lane >> 4))),
-                    qf[ks]);
-      __syncthreads();               // Q's stage is free for tile kt + 1
+        for (int ks = 0; ks < DP / 16; ++ks)
+          ldmatrix_x4(smem_u32(sQ + chunk_off<C>(warp * 16 + (lane & 15),
+                                                 ks * 2 + (lane >> 4))),
+                      qf[ks]);
+        __syncthreads();             // Q's stage is free for tile kt + 1
+      }
     }
     if (kt + 1 < kt_end) {
       const int64_t off = int64_t(kt + 1) * kBN * kv_stride;
@@ -428,6 +449,15 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks) {
+      uint32_t qa[4];                // this k-step's Q fragment
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(smem_u32(sQ + chunk_off<C>(warp * 16 + (lane & 15),
+                                               ks * 2 + (lane >> 4))),
+                    qa);
+      }
       uint32_t bk[NT / 2][4];        // this k-step's K fragments, then mma
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j)
@@ -438,8 +468,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         if (j >= groups) continue;
-        mma_bf16(s[2 * j], qf[ks], bk[j][0], bk[j][1]);
-        mma_bf16(s[2 * j + 1], qf[ks], bk[j][2], bk[j][3]);
+        mma_bf16(s[2 * j], qa, bk[j][0], bk[j][1]);
+        mma_bf16(s[2 * j + 1], qa, bk[j][2], bk[j][3]);
       }
     }
 
@@ -566,11 +596,16 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 // ------------------------------------------------------------ paged
 constexpr int kPagedThreads = 128;
 constexpr int kPagedWarps = kPagedThreads / 32;
-constexpr int kPagedTile = 64;      // key positions per tile
+constexpr int kPagedTile = 64;      // key positions per tile, at the most
 constexpr int kMaxGroup = 32;
 constexpr int kMaxHeadsPerWarp = kMaxGroup / kPagedWarps;
-// (head, 16-byte chunk) outputs per thread: 32 heads x 32 chunks / 128
+// (head, 16-byte chunk) outputs per thread; a block holds kMaxPairs x
+// kPagedThreads of them (the wrapper checks G x chunks against it)
 constexpr int kMaxPairs = 8;
+// positions a tile: 64, or 32 where 2 x 2 tiles of 64 would pass 128 KB
+__host__ __device__ constexpr int paged_tile(int row_bytes) {
+  return row_bytes <= 512 ? kPagedTile : kPagedTile / 2;
+}
 
 // Tile rows [0, nk) = key positions [p0, p0 + nk) of row b through the
 // block table, as stored, into `dst` (rows of RB bytes).  Unaligned rows
@@ -638,20 +673,21 @@ paged_attention_split_kernel(const T* __restrict__ q,
   const int len = lengths[b];
   const int n_pages = len > 0 ? min(P, (len + page - 1) / page) : P;
   if (s * pps >= n_pages) return;    // nothing live in this split
-  const int pos_begin = s * pps * page;
-  const int pos_end = min((s + 1) * pps, n_pages) * page;
-  const int n_tiles = (pos_end - pos_begin + kPagedTile - 1) / kPagedTile;
   const int G = H / KH;
   const int NC = (dh * int(sizeof(T)) + 15) / 16;   // chunks per row
   const int DPAD = NC * EPC;
   const int RB = NC * 16;
+  const int tile = paged_tile(RB);
+  const int pos_begin = s * pps * page;
+  const int pos_end = min((s + 1) * pps, n_pages) * page;
+  const int n_tiles = (pos_end - pos_begin + tile - 1) / tile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   extern __shared__ __align__(16) char smem_paged[];
   float* sQ = reinterpret_cast<float*>(smem_paged);  // G x DPAD
   float* sS = sQ + G * DPAD;                          // G x kPagedTile
   float* sAlpha = sS + G * kPagedTile;                // G, padded to 4
   char* sKV = reinterpret_cast<char*>(sAlpha + ((G + 3) & ~3));
-  const int TB = kPagedTile * RB;                     // one K or V tile
+  const int TB = tile * RB;                           // one K or V tile
   const int32_t* bt_row = block_tables + int64_t(b) * P;
   const T* qh = q + (int64_t(b) * H + kh * G) * dh;
 
@@ -661,7 +697,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
     sQ[i] = d < dh ? to_f(qh[g * dh + d]) : 0.f;
   }
   {
-    const int nk = min(kPagedTile, pos_end - pos_begin);
+    const int nk = min(tile, pos_end - pos_begin);
     load_page_tile<T>(sKV, kpool, bt_row, pos_begin, nk, page, KH, kh, dh,
                       NC, vec16);
     load_page_tile<T>(sKV + TB, vpool, bt_row, pos_begin, nk, page, KH, kh,
@@ -691,30 +727,31 @@ paged_attention_split_kernel(const T* __restrict__ q,
     for (int e = 0; e < EPC; ++e) acc[j][e] = 0.f;
 
   const int hw = lane >> 4, hl = lane & 15;   // half-warp, lane in it
+  constexpr int U = kMaxDh * int(sizeof(T)) / 256;   // chunks a lane, at most
   for (int t = 0; t < n_tiles; ++t) {
-    const int p0 = pos_begin + t * kPagedTile;
-    const int nk = min(kPagedTile, pos_end - p0);
+    const int p0 = pos_begin + t * tile;
+    const int nk = min(tile, pos_end - p0);
     const char* cK = sKV + (t & 1) * 2 * TB;
     const char* cV = cK + TB;
     cp_async_wait_all();
     __syncthreads();                 // tile t landed; the other stage free
     if (t + 1 < n_tiles) {
       char* nK = sKV + ((t + 1) & 1) * 2 * TB;
-      const int nk1 = min(kPagedTile, pos_end - p0 - kPagedTile);
-      load_page_tile<T>(nK, kpool, bt_row, p0 + kPagedTile, nk1, page, KH,
+      const int nk1 = min(tile, pos_end - p0 - tile);
+      load_page_tile<T>(nK, kpool, bt_row, p0 + tile, nk1, page, KH, kh, dh,
+                        NC, vec16);
+      load_page_tile<T>(nK + TB, vpool, bt_row, p0 + tile, nk1, page, KH,
                         kh, dh, NC, vec16);
-      load_page_tile<T>(nK + TB, vpool, bt_row, p0 + kPagedTile, nk1, page,
-                        KH, kh, dh, NC, vec16);
       cp_async_commit();
     }
 
-    // scores: one half-warp per key, lane hl on chunks hl and hl + 16
+    // scores: one half-warp per key, lane hl on chunks hl, hl + 16, ...
     for (int c0 = warp * 2; c0 < nk; c0 += 2 * kPagedWarps) {
       const int c = c0 + hw;
       const bool have = c < nk;
-      float kx[2][EPC];
+      float kx[U][EPC];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < U; ++u) {
         const int ch = hl + 16 * u;
         if (have && ch < NC) {
           chunk_to_f(cK + c * RB + ch * 16, kx[u]);
@@ -728,7 +765,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < U; ++u) {
           const int ch = hl + 16 * u;
           if (ch < NC) {
             const float4* qc =
@@ -840,8 +877,8 @@ paged_attention_split_kernel(const T* __restrict__ q,
 }
 
 // Merges each row's live splits in increasing order: one block per (head,
-// row), one thread per output column; the splits' (m, l) are read into
-// shared memory once.
+// row), one thread per output column (dh rounded up to a warp); the
+// splits' (m, l) are read into shared memory once.
 template <typename T>
 __global__ void __launch_bounds__(kMaxDh)
 paged_attention_combine_kernel(const float* __restrict__ part_acc,
@@ -912,7 +949,7 @@ template <int DP>
 int launch_flash_bf16(const void* q, const void* k, const void* v, void* out,
                       int B, int Sq, int Sk, int H, int KH, int dh, int causal,
                       int window, cudaStream_t stream) {
-  const size_t smem = 4 * kBN * DP * 2;
+  const size_t smem = flash_smem_bytes<DP>();
   cudaError_t err = allow_smem<flash_attention_bf16_kernel<DP>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec16 = dh % 8 == 0 && aligned16(q) && aligned16(k) &&
@@ -934,7 +971,7 @@ int launch_paged(const void* q, const void* kp, const void* vp,
   const int G = H / KH;
   const int NC = (dh * int(sizeof(T)) + 15) / 16;
   const int dpad = NC * (16 / int(sizeof(T)));
-  const size_t tiles = size_t(4) * kPagedTile * NC * 16;   // 2 x (K, V)
+  const size_t tiles = size_t(4) * paged_tile(NC * 16) * NC * 16;  // 2 x (K, V)
   const size_t red = sizeof(float) * kPagedThreads * (16 / sizeof(T));
   const size_t smem = sizeof(float) * (size_t(G) * dpad +
                                        size_t(G) * kPagedTile +
@@ -954,8 +991,9 @@ int launch_paged(const void* q, const void* kp, const void* vp,
           vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int combine_threads = ((dh > 32 ? dh : 32) + 31) / 32 * 32;
   paged_attention_combine_kernel<T>
-      <<<dim3(H, B), kMaxDh, sizeof(float) * 2 * splits, stream>>>(
+      <<<dim3(H, B), combine_threads, sizeof(float) * 2 * splits, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), H, dh, page,
       P, pps, splits);
@@ -967,7 +1005,7 @@ int launch_paged(const void* q, const void* kp, const void* vp,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous in the
-// reference's layouts; 1 <= dh <= 128, H % KH == 0.
+// reference's layouts; 1 <= dh <= 256, H % KH == 0.
 // q: (B, Sq, H, dh); k, v: (B, Sk, KH, dh); out: (B, Sq, H, dh).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int H, int KH,
@@ -986,14 +1024,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (dh <= 64)
     return launch_flash_bf16<64>(q, k, v, out, B, Sq, Sk, H, KH, dh, causal,
                                  window, s);
-  return launch_flash_bf16<128>(q, k, v, out, B, Sq, Sk, H, KH, dh, causal,
+  if (dh <= 128)
+    return launch_flash_bf16<128>(q, k, v, out, B, Sq, Sk, H, KH, dh, causal,
+                                  window, s);
+  return launch_flash_bf16<256>(q, k, v, out, B, Sq, Sk, H, KH, dh, causal,
                                 window, s);
 }
 
 // q: (B, H, dh); k_pages, v_pages: (n_phys, page, KH, dh);
 // block_tables: (B, P) int32; lengths: (B,) int32; out: (B, H, dh);
 // scratch part_acc: (B, H, splits, dh) f32, part_ml: (B, H, splits, 2) f32.
-// page <= 128; H / KH <= 32; splits * pps >= P.
+// page <= 128; H / KH <= 32; (H / KH) * ceil(dh * size / 16) <= 1024;
+// splits * pps >= P.
 int paged_attention_launch(const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
                            const void* lengths, void* part_acc,

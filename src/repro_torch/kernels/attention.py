@@ -32,9 +32,11 @@ from .. import _build
 LAUNCHES = {"flash_attention": 0, "paged_attention": 0}
 
 NEG = -1e30
-MAX_DH = 128
+MAX_DH = 256
 MAX_PAGE = 128
 MAX_GROUP = 32
+# (head, 16-byte chunk) outputs one paged block holds: 8 a thread x 128
+PAGED_MAX_PAIRS = 1024
 SPLIT_MIN_KEYS = 64     # positions a paged split covers at the least
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -216,6 +218,12 @@ def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention: page {page} (at most "
                          f"{MAX_PAGE}), group {H // KH} (at most "
                          f"{MAX_GROUP}), {P} pages per row")
+    chunks = -(-dh * q.element_size() // 16)
+    if H // KH * chunks > PAGED_MAX_PAIRS:
+        raise ValueError(f"paged_attention: group {H // KH} x {chunks} "
+                         f"16-byte chunks of a head ({dh} x {q.dtype}) "
+                         f"exceeds the {PAGED_MAX_PAIRS} outputs one block "
+                         f"holds")
     out = torch.empty_like(q)
     if B == 0:
         return out

@@ -22,6 +22,20 @@ cache shared by the shards and a 2 MiB pinned L0.  Page keys lie below
 every page on shard 0 and every state record on shard 1.  With a
 ``Telemetry`` on the store (``lsm_config=LSMConfig(..., telemetry=...)``)
 ``stats()`` adds per-op latency summaries and the trace's event count.
+
+Rings longer than their prompt are paged; rings the prompt wrapped are not.
+A ``kv_seq`` leaf holds a ring of ``min(window, s_max)`` slots (``s_max``
+for global attention), and the reference slices slots ``[64 i, 64 i + 64)``
+into page ``i``.  Once a prompt is longer than a ring, those slots hold the
+prompt's last positions, not page ``i``'s, and a second prompt sharing page
+``i`` would restore another prompt's keys (the reference's fault, ROADMAP
+C8).  The port pages a leaf only while the prompt fits in it, which keeps
+the blobs byte-identical to the reference's there; a leaf the prompt
+wrapped goes whole into the full-prompt state record, keyed by the whole
+prompt's hash.  Page blobs of such a prompt hold fewer leaves, so their
+keys are the chain hashes salted with the number of ring extents the
+prompt wrapped: prompts share a page blob only when it has the same
+layout.
 """
 from __future__ import annotations
 
@@ -40,6 +54,8 @@ from ..models.params import tree_leaves, tree_map
 PAGE_TOKENS = 64
 Pytree = Any
 _STATE_TAG = np.uint64(1) << np.uint64(63)
+_PAGE_MASK = (np.uint64(1) << np.uint64(63)) - np.uint64(1)
+_SALT = 0x9E3779B97F4A7C15
 
 
 def chain_hashes(tokens: np.ndarray, page: int = PAGE_TOKENS) -> List[int]:
@@ -87,37 +103,63 @@ class CacheCodec:
     s_max: int
 
     def __post_init__(self):
-        self.logical = [lg for _, lg in tree_leaves(
-            M.cache_logical_specs(self.cfg, self.batch, self.s_max),
-            lambda x: isinstance(x, tuple))]
+        specs = [spec for _, spec in tree_leaves(
+            M.cache_table(self.cfg, self.batch, self.s_max),
+            lambda x: isinstance(x, M.CacheSpec))]
+        self.logical = [spec.logical for spec in specs]
+        # the distinct extents of the kv_seq rings, ascending
+        self.ring_extents = sorted({spec.shape[ax] for spec in specs
+                                    if (ax := _kv_axis(spec.logical))
+                                    is not None})
 
     def leaves(self, cache: Pytree):
         """(path, tensor, logical axes) in JAX's leaf order."""
         return [(p, t, lg) for (p, t), lg in zip(tree_leaves(cache),
                                                  self.logical)]
 
-    def _page_slices(self, cache: Pytree, page_idx: int, page: int):
+    def wrapped_extents(self, prompt_len: int) -> int:
+        """How many ring extents a prompt of ``prompt_len`` tokens wraps."""
+        return sum(e < prompt_len for e in self.ring_extents)
+
+    @staticmethod
+    def _paged_axis(leaf: torch.Tensor, lg, prompt_len: int):
+        """The leaf's kv_seq axis if it is paged for this prompt, else
+        None (not a ring, or a ring the prompt wrapped)."""
+        ax = _kv_axis(lg)
+        if ax is None or leaf.shape[ax] < prompt_len:
+            return None
+        return ax
+
+    def _page_slices(self, cache: Pytree, page_idx: int, prompt_len: int,
+                     page: int):
         for _, leaf, lg in self.leaves(cache):
-            ax = _kv_axis(lg)
+            ax = self._paged_axis(leaf, lg, prompt_len)
             if ax is None:
                 continue
             lo = page_idx * page
             if lo < leaf.shape[ax]:
                 yield leaf.narrow(ax, lo, min(page, leaf.shape[ax] - lo))
 
-    def page_bytes(self, cache: Pytree, page_idx: int,
+    def _state_leaves(self, cache: Pytree, prompt_len: int):
+        return [leaf for _, leaf, lg in self.leaves(cache)
+                if self._paged_axis(leaf, lg, prompt_len) is None]
+
+    def page_bytes(self, cache: Pytree, page_idx: int, prompt_len: int,
                    page: int = PAGE_TOKENS) -> bytes:
-        """Serialize every kv_seq slice [page_idx*page, (page_idx+1)*page)."""
-        parts = [_bytes_of(s) for s in self._page_slices(cache, page_idx,
-                                                          page)]
+        """Serialize the kv_seq slice [page_idx*page, (page_idx+1)*page) of
+        every ring a prompt of ``prompt_len`` tokens fits in."""
+        parts = [_bytes_of(s) for s in self._page_slices(
+            cache, page_idx, prompt_len, page)]
         if not parts:
             return b""
         return torch.cat(parts).cpu().numpy().tobytes()
 
-    def state_bytes(self, cache: Pytree) -> bytes:
-        """Serialize every non-paged leaf (here the position)."""
-        parts = [_bytes_of(leaf) for _, leaf, lg in self.leaves(cache)
-                 if _kv_axis(lg) is None]
+    def state_bytes(self, cache: Pytree, prompt_len: int) -> bytes:
+        """Serialize every non-paged leaf: the position, recurrent states,
+        conv tails, cross-attention K/V, and each ring a prompt of
+        ``prompt_len`` tokens wrapped, whole."""
+        parts = [_bytes_of(leaf) for leaf in self._state_leaves(cache,
+                                                                prompt_len)]
         return torch.cat(parts).cpu().numpy().tobytes() if parts else b""
 
     @staticmethod
@@ -135,15 +177,16 @@ class CacheCodec:
             off += n
 
     def write_page(self, cache: Pytree, blob: bytes, page_idx: int,
-                   page: int = PAGE_TOKENS) -> Pytree:
+                   prompt_len: int, page: int = PAGE_TOKENS) -> Pytree:
         """Write a page blob into ``cache`` in place; returns ``cache``."""
-        self._fill(list(self._page_slices(cache, page_idx, page)), blob)
+        self._fill(list(self._page_slices(cache, page_idx, prompt_len,
+                                          page)), blob)
         return cache
 
-    def write_state(self, cache: Pytree, blob: bytes) -> Pytree:
+    def write_state(self, cache: Pytree, blob: bytes,
+                    prompt_len: int) -> Pytree:
         """Write a state blob into ``cache`` in place; returns ``cache``."""
-        self._fill([leaf for _, leaf, lg in self.leaves(cache)
-                    if _kv_axis(lg) is None], blob)
+        self._fill(self._state_leaves(cache, prompt_len), blob)
         return cache
 
 
@@ -165,12 +208,24 @@ class AutumnKVCache:
         self.pages_deduped = 0
 
     # ------------------------------------------------------------ interface
-    def _restore(self, template: Pytree, state_blob: bytes,
+    def page_keys(self, tokens: np.ndarray) -> List[int]:
+        """The store keys of a prompt's pages: its chain hashes, salted
+        with the count of ring extents the prompt wraps where it wraps any
+        (the page blobs then hold fewer leaves)."""
+        hs = chain_hashes(tokens, self.page)
+        n = self.codec.wrapped_extents(len(tokens))
+        if not n:
+            return hs
+        salt = np.uint64(n * _SALT % 2 ** 64)
+        salted = splitmix64(np.asarray(hs, np.uint64) ^ salt) & _PAGE_MASK
+        return [int(h) or 1 for h in salted]
+
+    def _restore(self, template: Pytree, prompt_len: int, state_blob: bytes,
                  page_blobs: List[bytes]) -> Pytree:
         cache = tree_map(torch.clone, template)
-        self.codec.write_state(cache, state_blob)
+        self.codec.write_state(cache, state_blob, prompt_len)
         for i, blob in enumerate(page_blobs):
-            self.codec.write_page(cache, blob, i, self.page)
+            self.codec.write_page(cache, blob, i, prompt_len, self.page)
         return cache
 
     def lookup_batch(self, prompts: List[np.ndarray],
@@ -180,19 +235,19 @@ class AutumnKVCache:
         state and page keys are resolved with ONE ``multi_get`` (split into
         one sub-wave a shard); hit/miss semantics and counters are the
         reference's."""
-        metas: List[Tuple[List[int], bool]] = []
+        metas: List[Tuple[List[int], bool, int]] = []
         all_keys: List[int] = []
         for tokens in prompts:
             hs = chain_hashes(tokens, self.page)
             ok = bool(hs) and len(tokens) % self.page == 0
-            metas.append((hs, ok))
+            metas.append((hs, ok, len(tokens)))
             if ok:
                 all_keys.append(int(np.uint64(hs[-1]) | _STATE_TAG))
-                all_keys.extend(hs)
+                all_keys.extend(self.page_keys(tokens))
         blobs = self.db.multi_get(all_keys) if all_keys else []
         out: List[Optional[Pytree]] = []
         off = 0
-        for hs, ok in metas:
+        for hs, ok, n_tokens in metas:
             if not ok:
                 self.misses += 1
                 out.append(None)
@@ -205,20 +260,23 @@ class AutumnKVCache:
                 out.append(None)
                 continue
             self.hits += 1
-            out.append(self._restore(template, state_blob, page_blobs))
+            out.append(self._restore(template, n_tokens, state_blob,
+                                     page_blobs))
         return out
 
     def insert(self, tokens: np.ndarray, cache: Pytree):
         hs = chain_hashes(tokens, self.page)
-        for i, h in enumerate(hs):
-            if self.db.get(h) is not None:   # content-addressed dedup
+        n_tokens = len(tokens)
+        for i, key in enumerate(self.page_keys(tokens)):
+            if self.db.get(key) is not None:   # content-addressed dedup
                 self.pages_deduped += 1
                 continue
-            self.db.put(h, self.codec.page_bytes(cache, i, self.page))
+            self.db.put(key, self.codec.page_bytes(cache, i, n_tokens,
+                                                   self.page))
             self.pages_written += 1
         if hs:
             self.db.put(int(np.uint64(hs[-1]) | _STATE_TAG),
-                        self.codec.state_bytes(cache))
+                        self.codec.state_bytes(cache, n_tokens))
         self.db.flush()
 
     def stats(self) -> Dict[str, Any]:

@@ -1,4 +1,4 @@
-"""The model zoo in PyTorch (dense ``attn`` family so far): configuration,
+"""The model zoo in PyTorch, every family of the reference: configuration,
 parameter table, layers, blocks, the serving model, and numpy carry-across.
 """
 from .config import ModelConfig, Stage, find_stages, torch_dtype

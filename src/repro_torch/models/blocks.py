@@ -1,35 +1,50 @@
-"""The ``attn`` block in prefill and decode modes.
+"""Per-kind blocks in prefill and decode modes.
 
-Counterpart of ``repro.models.blocks`` (``ring_positions``,
-``attn_prefill``, ``attn_decode`` for kind ``"attn"``).  Decode KV caches
-are ring buffers, as in the reference: the token at position ``pos`` goes
-to slot ``pos % s_cache``.
+Counterpart of ``repro.models.blocks`` (``ring_positions``, the
+``*_prefill`` and ``*_decode`` of every kind, ``cross_kv``,
+``_cross_attn``, the Mamba-2 and RG-LRU helpers and the routing tables
+``PREFILL`` and ``DECODE``).  Decode KV caches are ring buffers, as in the
+reference: the token at position ``pos`` goes to slot ``pos % s_cache``,
+and a ``lattn`` ring holds ``min(window, s_max)`` slots.
 
-Attention goes through :mod:`..kernels.ops`: prefill calls
-``flash_attention`` (the reference computes it with XLA ``gqa_attention``),
-and decode calls ``paged_attention`` on a zero-copy view of the layer's
-cache ``(B, s_cache, KH, dh)`` as ``(B * s_cache / page, page, KH, dh)``
-with the identity block table ``block_tables[b, p] = b * s_cache / page + p``
-and ``lengths = min(pos + 1, s_cache)``.  That is the reference's ring mask
-for ``attn``: slots above ``pos`` hold negative positions until the ring
-wraps, and after it wraps every slot is valid; the softmax does not depend
-on the order of the slots.
+Attention goes through :mod:`..kernels.ops`.  Prefill calls
+``flash_attention`` (the reference computes it with XLA
+``gqa_attention``): causal for ``attn``, causal with ``window`` for
+``lattn``, non-causal for cross-attention (prefill and decode alike, the
+query over every source position).  Self-attention decode calls
+``paged_attention`` on a zero-copy view of the layer's cache
+``(B, s_cache, KH, dh)`` as ``(B * s_cache / page, page, KH, dh)`` with
+the identity block table ``block_tables[b, p] = b * s_cache / page + p``
+and ``lengths = min(pos + 1, s_cache)``.  That is the reference's ring
+mask: slots above ``pos`` hold negative positions until the ring wraps,
+and after it wraps every slot holds a position in
+``(pos - s_cache, pos]``, inside a ``lattn`` window since
+``s_cache <= window``; the softmax does not depend on the order of the
+slots.
 
-Caches are updated in place: the model allocates one cache tree and each
-layer writes its own slice of it.
+A block takes ``(kind, params, x, cache, ctx, cfg)``, writes its layer's
+slice of the model's one cache tree in place and returns the residual
+stream.  ``ctx`` holds ``positions`` (prefill), ``enc_out`` and
+``img_embeds`` (prefill, cross-attention sources), and ``pos`` and
+``tables`` (decode: ``tables[s_cache]`` is the ``(block_tables,
+lengths)`` pair of the caches of that extent).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import attn_output, attn_project_qkv, mlp, rms_norm
+from .layers import (attn_output, attn_project_qkv, causal_conv1d,
+                     causal_conv1d_step, mlp, proj, rglru_scan, rglru_step,
+                     rms_norm, ssd_scan, ssd_step)
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
+Ctx = Dict[str, Any]
 DECODE_PAGE = 64
 
 
@@ -47,30 +62,35 @@ def decode_page(s_cache: int) -> int:
     return page
 
 
-def attn_prefill(p: Params, x: torch.Tensor, cache: Cache,
-                 positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One layer over the prompt; writes the layer's (zeroed) ``cache``
-    slots and returns the new residual stream."""
+def _mlp_out(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+
+
+# ====================================================================== attn
+def attn_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                 ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    """One layer over the prompt; writes the layer's (zeroed) ring."""
+    window = cfg.window if kind == "lattn" else 0
     S = x.shape[1]
     s_cache = cache["k"].shape[1]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = attn_project_qkv(p, h, cfg, positions)
-    ctx = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True)
-    x = x + attn_output(p, ctx)
+    q, k, v = attn_project_qkv(p, h, cfg, ctx["positions"])
+    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, window=window)
+    x = x + attn_output(p, o)
     take = min(S, s_cache)
     slots = (torch.arange(take, device=x.device) + S - take) % s_cache
     cache["k"][:, slots] = k[:, S - take:].to(cache["k"].dtype)
     cache["v"][:, slots] = v[:, S - take:].to(cache["v"].dtype)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + _mlp_out(p, x, cfg)
 
 
-def attn_decode(p: Params, cache: Cache, x: torch.Tensor, pos: torch.Tensor,
-                block_tables: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """One layer for one token per row at position ``pos`` (0-dim int32 on
-    the device); writes slot ``pos % s_cache`` of the layer's cache."""
+def attn_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
+                ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    """One layer for one token per row at position ``ctx["pos"]`` (0-dim
+    int32 on the device); writes slot ``pos % s_cache`` of the ring."""
     B = x.shape[0]
+    pos = ctx["pos"]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = attn_project_qkv(p, h, cfg, pos.expand(B, 1))
     ck, cv = cache["k"], cache["v"]
@@ -78,10 +98,216 @@ def attn_decode(p: Params, cache: Cache, x: torch.Tensor, pos: torch.Tensor,
     slot = (pos % s_cache).view(1).long()
     ck.index_copy_(1, slot, k.to(ck.dtype))
     cv.index_copy_(1, slot, v.to(cv.dtype))
+    block_tables, lengths = ctx["tables"][s_cache]
     page = s_cache // block_tables.shape[1]
-    ctx = ops.paged_attention(q[:, 0].contiguous(),
-                              ck.view(-1, page, KH, dh),
-                              cv.view(-1, page, KH, dh), block_tables,
-                              lengths)
-    x = x + attn_output(p, ctx[:, None])
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    o = ops.paged_attention(q[:, 0].contiguous(), ck.view(-1, page, KH, dh),
+                            cv.view(-1, page, KH, dh), block_tables, lengths)
+    x = x + attn_output(p, o[:, None])
+    return x + _mlp_out(p, x, cfg)
+
+
+# ================================================================ cross-attn
+def cross_kv(p: Params, src: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K and V of a source sequence (B, T, D)."""
+    k, v = proj(src, p["wk"]), proj(src, p["wv"])
+    if cfg.qk_norm and "k_norm" in p:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def cross_attn(p: Params, h: torch.Tensor, src_k: torch.Tensor,
+               src_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every query over every source position (no rope, no mask)."""
+    q = proj(h, p["wq"])
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    o = ops.flash_attention(q.contiguous(), src_k.contiguous(),
+                            src_v.contiguous(), causal=False)
+    return attn_output(p, o)
+
+
+def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(g.float()).to(x.dtype)
+
+
+def _xattn(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    x = x + _gate(p["xgate"], x) * cross_attn(p, h, k, v, cfg)
+    return x + _gate(p["mgate"], x) * _mlp_out(p, x, cfg)
+
+
+def xattn_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                  ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    k, v = cross_kv(p, ctx["img_embeds"], cfg)
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    return _xattn(p, x, k, v, cfg)
+
+
+def xattn_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
+                 ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    return _xattn(p, x, cache["k"], cache["v"], cfg)
+
+
+# ========================================== whisper decoder (self + cross)
+_NOOP_MLP: Params = {}     # reuses the attn block with no MLP of its own
+
+
+def _self_cache(cache: Cache) -> Cache:
+    return {"k": cache["k"], "v": cache["v"]}
+
+
+def _wdec_cross(p: Params, x: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    x = x + cross_attn(p["x"], hx, k, v, cfg)
+    return x + _mlp_out(p, x, cfg)
+
+
+def wdec_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                 ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    x = attn_prefill("attn", {**p, "mlp": _NOOP_MLP}, x, _self_cache(cache),
+                     ctx, cfg)
+    k, v = cross_kv(p["x"], ctx["enc_out"], cfg)
+    cache["xk"].copy_(k)
+    cache["xv"].copy_(v)
+    return _wdec_cross(p, x, k, v, cfg)
+
+
+def wdec_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
+                ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    x = attn_decode("attn", {**p, "mlp": _NOOP_MLP}, _self_cache(cache), x,
+                    ctx, cfg)
+    return _wdec_cross(p, x, cache["xk"], cache["xv"], cfg)
+
+
+# ================================================================== Mamba-2
+def _ssd_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    pr = h @ p["in_proj"]
+    z = pr[..., :d_inner]
+    xBC = pr[..., d_inner:2 * d_inner + 2 * s.d_state]
+    dt_raw = pr[..., 2 * d_inner + 2 * s.d_state:]
+    return z, xBC, dt_raw, d_inner, H
+
+
+def _ssd_split(xBC: torch.Tensor, d_inner: int, d_state: int):
+    return (xBC[..., :d_inner], xBC[..., d_inner:d_inner + d_state],
+            xBC[..., d_inner + d_state:])
+
+
+def _ssd_chunk(S: int, pref: int) -> int:
+    """Largest divisor of S not exceeding the preferred chunk size."""
+    for c in range(min(pref, S), 0, -1):
+        if S % c == 0:
+            return c
+    return 1
+
+
+def _ssd_out(p: Params, x: torch.Tensor, y: torch.Tensor, xh: torch.Tensor,
+             z: torch.Tensor, d_skip: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """y + D x, gated norm, out projection, residual (and the MLP, where
+    the block has one)."""
+    y = (y + xh * d_skip.to(x.dtype)).reshape(z.shape)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    x = x + y @ p["out_proj"]
+    if "mlp" in p:
+        x = x + _mlp_out(p, x, cfg)
+    return x
+
+
+def ssd_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    s = cfg.ssm
+    z, conv_in, dt_raw, d_inner, H = _ssd_proj(p, x, cfg)
+    xBC = F.silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = _ssd_split(xBC, d_inner, s.d_state)
+    B_, S, _ = x.shape
+    xh = xs.reshape(B_, S, H, s.head_dim)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y, state = ssd_scan(xh, dt, A, Bm, Cm, _ssd_chunk(S, s.chunk))
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv_in[:, S - (s.conv_width - 1):])
+    return _ssd_out(p, x, y, xh, z,
+                    p["D"].float()[None, None, :, None], cfg)
+
+
+def ssd_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
+               ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    s = cfg.ssm
+    z, xBC, dt_raw, d_inner, H = _ssd_proj(p, x, cfg)
+    xBC_t, conv_state = causal_conv1d_step(xBC[:, 0], cache["conv"],
+                                           p["conv_w"], p["conv_b"])
+    xs, B_t, C_t = _ssd_split(F.silu(xBC_t), d_inner, s.d_state)
+    xh = xs.reshape(x.shape[0], H, s.head_dim)
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y, state = ssd_step(xh, dt, A, B_t, C_t, cache["state"])
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv_state)
+    return _ssd_out(p, x, y, xh, z, p["D"].float()[None, :, None], cfg)
+
+
+# =================================================================== RG-LRU
+def _rglru_gates(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    gate = F.gelu(h @ p["wy"], approximate="tanh")    # jax.nn.gelu's default
+    return h @ p["wx"], gate
+
+
+def _rglru_ri(p: Params, u: torch.Tensor):
+    """The recurrence and input gates r, i (block-diagonal where the gate
+    weights are (blocks, w, w))."""
+    ba, bi = p["ba_gate"].to(u.dtype), p["bi_gate"].to(u.dtype)
+    if p["wa_gate"].dim() == 3:
+        B_, S_, W_ = u.shape
+        nb, wb, _ = p["wa_gate"].shape
+        ub = u.reshape(B_, S_, nb, wb)
+        r = torch.einsum("bsnw,nwv->bsnv", ub, p["wa_gate"]).reshape(
+            B_, S_, W_) + ba
+        i = torch.einsum("bsnw,nwv->bsnv", ub, p["wi_gate"]).reshape(
+            B_, S_, W_) + bi
+        return torch.sigmoid(r), torch.sigmoid(i)
+    return torch.sigmoid(u @ p["wa_gate"] + ba), \
+        torch.sigmoid(u @ p["wi_gate"] + bi)
+
+
+def rglru_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                  ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    u_raw, gate = _rglru_gates(p, x, cfg)
+    u = causal_conv1d(u_raw, p["conv_w"], p["conv_b"])
+    r, i = _rglru_ri(p, u)
+    h, h_last = rglru_scan(u, r, i, p["Lambda"], cfg.rglru.power)
+    x = x + (h * gate) @ p["wout"]
+    cache["h"].copy_(h_last)
+    cache["conv"].copy_(u_raw[:, x.shape[1] - (cfg.rglru.conv_width - 1):])
+    return x + _mlp_out(p, x, cfg)
+
+
+def rglru_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
+                 ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    u_raw, gate = _rglru_gates(p, x, cfg)
+    u_t, conv_state = causal_conv1d_step(u_raw[:, 0], cache["conv"],
+                                         p["conv_w"], p["conv_b"])
+    r, i = _rglru_ri(p, u_t[:, None])
+    h, h_new = rglru_step(u_t, r[:, 0], i[:, 0], p["Lambda"],
+                          cfg.rglru.power, cache["h"])
+    x = x + ((h * gate[:, 0]) @ p["wout"])[:, None]
+    cache["h"].copy_(h_new)
+    cache["conv"].copy_(conv_state)
+    return x + _mlp_out(p, x, cfg)
+
+
+# ------------------------------------------------------------------ routing
+PREFILL = {"attn": attn_prefill, "lattn": attn_prefill,
+           "xattn": xattn_prefill, "wdec": wdec_prefill,
+           "ssd": ssd_prefill, "rglru": rglru_prefill}
+DECODE = {"attn": attn_decode, "lattn": attn_decode, "xattn": xattn_decode,
+          "wdec": wdec_decode, "ssd": ssd_decode, "rglru": rglru_decode}
+SELF_ATTN_KINDS = ("attn", "lattn", "wdec")   # kinds that decode through K3

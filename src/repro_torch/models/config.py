@@ -7,11 +7,12 @@ keeps the reference's stage layout so that parameter and cache trees have
 the same shapes (a leading layers axis per stage).
 
 Layer kinds:
-  attn    — global self-attention (GQA, optional qk_norm)   [ported]
+  attn    — global self-attention (GQA, optional qk_norm)
   lattn   — local/sliding-window self-attention
   xattn   — cross-attention (vision / encoder-decoder)
   ssd     — Mamba-2 state-space duality block
   rglru   — RG-LRU recurrent block (Griffin/RecurrentGemma)
+  wdec    — whisper decoder block (self-attention + cross-attention)
 
 Dtype fields stay strings, as in the reference; :func:`torch_dtype` maps
 them to torch dtypes.

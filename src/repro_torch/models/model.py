@@ -1,15 +1,18 @@
-"""Model assembly for serving: embedding, layers, unembedding, caches.
+"""Model assembly for serving: embedding, the encoder, layers, unembedding,
+caches.
 
-Counterpart of ``repro.models.model`` for the dense ``attn`` family
-(``embed_tokens``, ``unembed``, ``prefill``, ``decode_step``,
-``cache_table``, ``init_cache``, ``cache_logical_specs``).  The reference
-scans each stage with ``lax.scan``; PyTorch runs eagerly, so the layers are
-a Python loop over views into the stacked parameters.
+Counterpart of ``repro.models.model`` (``embed_tokens``, ``unembed``,
+``sinusoid_positions``, ``encoder_forward``, ``prefill``, ``decode_step``,
+``cache_table``, ``init_cache``, ``cache_logical_specs``) for every layer
+kind.  The reference scans each stage with ``lax.scan``; PyTorch runs
+eagerly, so the layers are a Python loop over views into the stacked
+parameters.
 
 The parameter and cache trees keep the reference's layout, with a leading
 layers axis per stage:
-  params: {"embed", "final_norm", ["lm_head"], "stages": [{"blocks": [...]}]}
-  cache:  {"pos", "stages": [{"blocks": [{"k", "v"}]}]}
+  params: {"embed", "final_norm", ["lm_head"], ["encoder"],
+           "stages": [{"blocks": [...]}]}
+  cache:  {"pos", "stages": [{"blocks": [{leaf: (layers, B, ...)}]}]}
 ``pos`` is a 0-dim int32 tensor on the device, never read back by a step.
 Unlike the reference's pure functions, ``decode_step`` updates the cache in
 place and returns it.
@@ -17,6 +20,7 @@ place and returns it.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -24,13 +28,17 @@ import torch
 from torch import nn
 
 from ..core.engine import resolve_device
+from ..kernels import ops
 from . import blocks
 from .config import ModelConfig, find_stages, torch_dtype
-from .layers import rms_norm
+from .layers import attn_output, mlp, proj, rms_norm
 from .params import ParamSpec, param_table, tree_leaves, tree_map
 
 Pytree = Any
 NEG_LOGIT = -1e30
+# matrices the reference reads in float32 (the router's logits, the conv
+# taps): kept in the parameter dtype like every vector
+_PARAM_DTYPE_MATRICES = ("router", "conv_w")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,14 +50,41 @@ class CacheSpec:
 
 def _block_cache_spec(cfg: ModelConfig, kind: str, B: int,
                       s_max: int) -> Dict[str, CacheSpec]:
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md A11)")
     cd = torch_dtype(cfg.compute_dtype)
+    KH, dh = cfg.n_kv, cfg.d_head
     kv_logical = ("batch", "kv_seq", "kv_heads", "head_dim")
-    shape = (B, s_max, cfg.n_kv, cfg.d_head)
-    return {"k": CacheSpec(shape, cd, kv_logical),
-            "v": CacheSpec(shape, cd, kv_logical)}
+    enc_logical = ("batch", "enc_seq", "kv_heads", "head_dim")
+    if kind in ("attn", "lattn"):
+        sc = min(cfg.window, s_max) if kind == "lattn" else s_max
+        return {"k": CacheSpec((B, sc, KH, dh), cd, kv_logical),
+                "v": CacheSpec((B, sc, KH, dh), cd, kv_logical)}
+    if kind == "xattn":
+        T = cfg.vision.n_img_tokens
+        return {"k": CacheSpec((B, T, KH, dh), cd, enc_logical),
+                "v": CacheSpec((B, T, KH, dh), cd, enc_logical)}
+    if kind == "wdec":
+        T = cfg.encoder.seq_len
+        return {"k": CacheSpec((B, s_max, KH, dh), cd, kv_logical),
+                "v": CacheSpec((B, s_max, KH, dh), cd, kv_logical),
+                "xk": CacheSpec((B, T, KH, dh), cd, enc_logical),
+                "xv": CacheSpec((B, T, KH, dh), cd, enc_logical)}
+    if kind == "ssd":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        H = d_inner // s.head_dim
+        return {"state": CacheSpec((B, H, s.head_dim, s.d_state),
+                                   torch.float32,
+                                   ("batch", "ssm_heads", "head_dim",
+                                    "ssm_state")),
+                "conv": CacheSpec((B, s.conv_width - 1,
+                                   d_inner + 2 * s.d_state), cd,
+                                  ("batch", None, "ssm_inner"))}
+    if kind == "rglru":
+        W = cfg.rglru.width or cfg.d_model
+        return {"h": CacheSpec((B, W), torch.float32, ("batch", "rec")),
+                "conv": CacheSpec((B, cfg.rglru.conv_width - 1, W), cd,
+                                  ("batch", None, "rec"))}
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def cache_table(cfg: ModelConfig, B: int, s_max: int) -> Pytree:
@@ -83,38 +118,66 @@ def cache_logical_specs(cfg: ModelConfig, B: int, s_max: int) -> Pytree:
                     is_leaf=_is_cache_spec)
 
 
+def sinusoid_positions(T: int, D: int, device=None) -> torch.Tensor:
+    """(T, D) float32 sin/cos position table of the encoder."""
+    half = D // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / max(half - 1, 1))
+    ang = torch.arange(T, dtype=torch.float32, device=device)[:, None] \
+        * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :D]
+
+
+def _compute_copy(table: Pytree, params: Pytree, cd: torch.dtype,
+                  name: str = "") -> Pytree:
+    """The parameter tree as computed with: matrices in the compute dtype,
+    vectors and ``_PARAM_DTYPE_MATRICES`` as stored."""
+    if isinstance(table, ParamSpec):
+        dims = [a for a in table.logical if a != "layers"]
+        if len(dims) >= 2 and name not in _PARAM_DTYPE_MATRICES:
+            return params.to(cd)
+        return params
+    if isinstance(table, dict):
+        return {k: _compute_copy(table[k], params[k], cd, k) for k in table}
+    return [_compute_copy(t, p, cd, name) for t, p in zip(table, params)]
+
+
 class Model(nn.Module):
-    """A decoder of ``attn`` blocks over a parameter tree.
+    """A decoder of any of the reference's layer kinds (and whisper's
+    encoder) over a parameter tree.
 
     ``params`` is the reference-layout tree of ``cfg.param_dtype`` tensors
     (from :func:`.params.init_params` or :func:`.convert.params_from_numpy`),
     all on one device; the module registers each leaf as a frozen
     parameter.  Matrices are also kept once in ``cfg.compute_dtype`` (the
     same tensor when the two dtypes agree), which rounds exactly as the
-    reference's per-einsum ``.astype``; norm scales stay in the parameter
-    dtype and are read in float32.
+    reference's per-einsum ``.astype``; vectors, the router and the conv
+    taps stay in the parameter dtype and are cast where the reference
+    casts them.
     """
 
     def __init__(self, cfg: ModelConfig, params: Pytree):
         super().__init__()
         self.cfg = cfg
-        table = param_table(cfg)
         self.params = params
         for path, leaf in tree_leaves(params):   # e.g. stages_0_blocks_0_wq
             self.register_parameter(re.sub(r"\W+", "_", path).strip("_"),
                                     nn.Parameter(leaf, requires_grad=False))
-        cd = torch_dtype(cfg.compute_dtype)
-        self.compute = tree_map(
-            lambda spec, t: t if spec.logical[-1] == "norm" else t.to(cd),
-            table, params, is_leaf=lambda x: isinstance(x, ParamSpec))
-        # (stage, block, layer index, layer params) in execution order
+        self.compute = _compute_copy(param_table(cfg), params,
+                                     torch_dtype(cfg.compute_dtype))
+        # (kind, stage, block, layer index, layer params) in execution order
         self.layers = []
         for si, st in enumerate(find_stages(cfg.layer_pattern)):
             for i in range(st.repeat):
-                for j in range(len(st.block)):
+                for j, kind in enumerate(st.block):
                     lp = tree_map(lambda a: a[i],
                                   self.compute["stages"][si]["blocks"][j])
-                    self.layers.append((si, j, i, lp))
+                    self.layers.append((kind, si, j, i, lp))
+        self.encoder_layers = []
+        if cfg.encoder is not None:
+            enc = self.compute["encoder"]["blocks"]
+            self.encoder_layers = [tree_map(lambda a: a[i], enc)
+                                   for i in range(cfg.encoder.n_layers)]
         self._tables: Dict[Tuple[int, int], torch.Tensor] = {}
 
     @property
@@ -136,27 +199,57 @@ class Model(nn.Module):
             logits[..., cfg.vocab:] = NEG_LOGIT
         return logits
 
+    def encoder_forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper-style bidirectional encoder over (stubbed) frame
+        embeddings (B, T, D): every layer's attention non-causal through
+        ``flash_attention``."""
+        cfg = self.cfg
+        x = frames.to(torch_dtype(cfg.compute_dtype))
+        x = x + sinusoid_positions(x.shape[1], cfg.d_model,
+                                   x.device).to(x.dtype)
+        for p in self.encoder_layers:
+            h = rms_norm(x, p["ln"], cfg.norm_eps)
+            o = ops.flash_attention(proj(h, p["wq"]).contiguous(),
+                                    proj(h, p["wk"]).contiguous(),
+                                    proj(h, p["wv"]).contiguous(),
+                                    causal=False)
+            x = x + attn_output(p, o)
+            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+        return rms_norm(x, self.compute["encoder"]["final_norm"],
+                        cfg.norm_eps)
+
     def init_cache(self, B: int, s_max: int) -> Pytree:
         return init_cache(self.cfg, B, s_max, self.device)
 
-    def _layer_cache(self, cache: Pytree, si: int, j: int, i: int):
-        c = cache["stages"][si]["blocks"][j]
-        return {"k": c["k"][i], "v": c["v"][i]}
+    @staticmethod
+    def _layer_cache(cache: Pytree, si: int, j: int, i: int):
+        return {k: t[i] for k, t in cache["stages"][si]["blocks"][j].items()}
 
     # -------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, s_max: int
+    def prefill(self, tokens: torch.Tensor, s_max: int,
+                extras: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Pytree]:
         """Logits of the last prompt token (B, vocab_padded) and a fresh
-        decode cache holding the prompt."""
+        decode cache holding the prompt.  ``extras`` carries the
+        modality frontends' stubbed embeddings where the model has them:
+        ``enc_frames`` (B, T, D) for an encoder, ``img_embeds`` (B, T, D)
+        for cross-attention image layers."""
+        cfg = self.cfg
+        extras = extras or {}
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+        ctx: Dict[str, Any] = {"positions": torch.arange(
+            S, dtype=torch.int32, device=x.device).expand(B, S)}
+        if cfg.encoder is not None:
+            ctx["enc_out"] = self.encoder_forward(extras["enc_frames"])
+        if cfg.vision is not None:
+            ctx["img_embeds"] = extras["img_embeds"].to(x.dtype)
         cache = self.init_cache(B, s_max)
-        for si, j, i, lp in self.layers:
-            x = blocks.attn_prefill(lp, x, self._layer_cache(cache, si, j, i),
-                                    positions, self.cfg)
+        for kind, si, j, i, lp in self.layers:
+            x = blocks.PREFILL[kind](kind, lp, x,
+                                     self._layer_cache(cache, si, j, i), ctx,
+                                     cfg)
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
         return self.unembed(x[:, -1:])[:, 0], cache
 
@@ -178,15 +271,17 @@ class Model(nn.Module):
         pos = cache["pos"]
         B = tokens.shape[0]
         x = self.embed_tokens(tokens)
-        tables = {}
-        for si, j, i, lp in self.layers:
+        tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        ctx = {"pos": pos, "tables": tables}
+        for kind, si, j, i, lp in self.layers:
             lc = self._layer_cache(cache, si, j, i)
-            s_cache = lc["k"].shape[1]
-            if s_cache not in tables:
-                lengths = torch.clamp(pos + 1, max=s_cache).to(
-                    torch.int32).expand(B).contiguous()
-                tables[s_cache] = (self._block_table(B, s_cache), lengths)
-            x = blocks.attn_decode(lp, lc, x, pos, *tables[s_cache],
-                                   self.cfg)
+            if kind in blocks.SELF_ATTN_KINDS:
+                s_cache = lc["k"].shape[1]   # a block table per ring extent
+                if s_cache not in tables:
+                    lengths = torch.clamp(pos + 1, max=s_cache).to(
+                        torch.int32).expand(B).contiguous()
+                    tables[s_cache] = (self._block_table(B, s_cache),
+                                       lengths)
+            x = blocks.DECODE[kind](kind, lp, lc, x, ctx, self.cfg)
         cache["pos"] = pos + 1
         return self.unembed(x)[:, 0], cache

@@ -1,12 +1,17 @@
-"""Declarative parameter table and initialisation for the dense ``attn``
+"""Declarative parameter table and initialisation for every architecture
 family.
 
 Counterpart of ``repro.models.params``: every parameter is described once by
 a :class:`ParamSpec` (shape, logical axes, init rule), and
 :func:`init_params` and :func:`count_params` derive from that one table.  The
 tree has the reference's layout — ``{"embed", "final_norm", ["lm_head"],
-"stages": [{"blocks": [{...}]}]}`` with a leading layers axis on every stage
-leaf — so weights carry across leaf for leaf (:mod:`.convert`).
+["encoder"], "stages": [{"blocks": [{...}]}]}`` with a leading layers axis
+on every stacked leaf — so weights carry across leaf for leaf
+(:mod:`.convert`).  The block tables are the reference's: attention
+(``attn``, ``lattn``), gated cross-attention (``xattn``), whisper's decoder
+block (``wdec``), Mamba-2 (``ssd``), RG-LRU (``rglru``, with
+block-diagonal gates where ``gate_blocks`` is set), dense or MoE MLPs, and
+whisper's encoder.
 
 The init rules and scales are the reference's: ``normal`` draws N(0, 1)
 scaled by fan_in^-1/2, ``output`` further by (2 L)^-1/2, ``zeros`` and
@@ -81,8 +86,16 @@ def _is_spec(x) -> bool:
 def _mlp_specs(cfg: ModelConfig) -> Dict[str, Any]:
     D, F = cfg.d_model, cfg.d_ff
     if cfg.moe is not None:
-        raise NotImplementedError("MoE MLPs are not ported yet: ROADMAP.md "
-                                  "A11 step 3")
+        E = cfg.moe.num_experts
+        return {
+            "router": ParamSpec((D, E), ("embed", "expert")),
+            "wg": ParamSpec((E, D, F), ("expert", "embed", "mlp"),
+                            fan_in_axes=(1,)),
+            "wu": ParamSpec((E, D, F), ("expert", "embed", "mlp"),
+                            fan_in_axes=(1,)),
+            "wd": ParamSpec((E, F, D), ("expert", "mlp", "embed"), "output",
+                            fan_in_axes=(1,)),
+        }
     return {
         "wg": ParamSpec((D, F), ("embed", "mlp")),
         "wu": ParamSpec((D, F), ("embed", "mlp")),
@@ -107,12 +120,92 @@ def _attn_core_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _block_specs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     D = cfg.d_model
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md A11)")
     ln = lambda: ParamSpec((D,), ("norm",), "ones")
-    return {"ln": ln(), **_attn_core_specs(cfg), "ln2": ln(),
-            "mlp": _mlp_specs(cfg)}
+    if kind in ("attn", "lattn"):
+        return {"ln": ln(), **_attn_core_specs(cfg), "ln2": ln(),
+                "mlp": _mlp_specs(cfg)}
+    if kind == "xattn":
+        return {"ln": ln(), **_attn_core_specs(cfg),
+                "xgate": ParamSpec((1,), ("norm",), "zeros"),
+                "ln2": ln(), "mlp": _mlp_specs(cfg),
+                "mgate": ParamSpec((1,), ("norm",), "zeros")}
+    if kind == "wdec":  # whisper decoder block: self-attn + cross-attn + mlp
+        return {"ln": ln(), **_attn_core_specs(cfg), "ln_x": ln(),
+                "x": _attn_core_specs(cfg), "ln2": ln(),
+                "mlp": _mlp_specs(cfg)}
+    if kind == "ssd":
+        s = cfg.ssm
+        d_inner = s.expand * D
+        H = d_inner // s.head_dim
+        conv_dim = d_inner + 2 * s.d_state
+        out = {
+            "ln": ln(),
+            "in_proj": ParamSpec((D, 2 * d_inner + 2 * s.d_state + H),
+                                 ("embed", "ssm_inner")),
+            "conv_w": ParamSpec((s.conv_width, conv_dim),
+                                ("conv_w", "ssm_inner"), fan_in_axes=(0,)),
+            "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), "zeros"),
+            "A_log": ParamSpec((H,), ("ssm_heads",), "ones"),
+            "D": ParamSpec((H,), ("ssm_heads",), "ones"),
+            "dt_bias": ParamSpec((H,), ("ssm_heads",), "zeros"),
+            "norm": ParamSpec((d_inner,), ("ssm_inner",), "ones"),
+            "out_proj": ParamSpec((d_inner, D), ("ssm_inner", "embed"),
+                                  "output"),
+        }
+        if cfg.d_ff > 0:
+            out["ln2"] = ln()
+            out["mlp"] = _mlp_specs(cfg)
+        return out
+    if kind == "rglru":
+        r = cfg.rglru
+        W = r.width or D
+        nb = r.gate_blocks
+        if nb:
+            if W % nb:
+                raise ValueError(f"width {W} is no multiple of {nb} blocks")
+            gate = lambda: ParamSpec((nb, W // nb, W // nb),
+                                     ("rec_blocks", "rec_blk_in",
+                                      "rec_blk_out"), fan_in_axes=(1,))
+        else:
+            gate = lambda: ParamSpec((W, W), ("rec_in", "rec"))
+        return {
+            "ln": ln(),
+            "wx": ParamSpec((D, W), ("embed", "rec")),       # recurrent branch
+            "wy": ParamSpec((D, W), ("embed", "rec")),       # gate branch
+            "conv_w": ParamSpec((r.conv_width, W), ("conv_w", "rec"),
+                                fan_in_axes=(0,)),
+            "conv_b": ParamSpec((W,), ("rec",), "zeros"),
+            "wa_gate": gate(),                               # recurrence gate
+            "ba_gate": ParamSpec((W,), ("rec",), "zeros"),
+            "wi_gate": gate(),                               # input gate
+            "bi_gate": ParamSpec((W,), ("rec",), "zeros"),
+            "Lambda": ParamSpec((W,), ("rec",), "ones"),
+            "wout": ParamSpec((W, D), ("rec", "embed"), "output"),
+            "ln2": ln(),
+            "mlp": _mlp_specs(cfg),
+        }
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _encoder_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    e = cfg.encoder
+    D = cfg.d_model
+    dh = D // e.n_heads
+    ln = lambda: ParamSpec((D,), ("norm",), "ones")
+    return {
+        "ln": ln(),
+        "wq": ParamSpec((D, e.n_heads, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((D, e.n_heads, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((D, e.n_heads, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((e.n_heads, dh, D), ("heads", "head_dim", "embed"),
+                        "output", fan_in_axes=(0, 1)),
+        "ln2": ln(),
+        "mlp": {
+            "wg": ParamSpec((D, e.d_ff), ("embed", "mlp")),
+            "wu": ParamSpec((D, e.d_ff), ("embed", "mlp")),
+            "wd": ParamSpec((e.d_ff, D), ("mlp", "embed"), "output"),
+        },
+    }
 
 
 def _stack_specs(tree: Pytree, repeat: int) -> Pytree:
@@ -124,9 +217,6 @@ def _stack_specs(tree: Pytree, repeat: int) -> Pytree:
 
 def param_table(cfg: ModelConfig) -> Dict[str, Any]:
     """Full tree of ParamSpec. Stage leaves carry a leading 'layers' axis."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoders are not ported yet: ROADMAP.md "
-                                  "A11 step 6")
     D, V = cfg.d_model, cfg.vocab_padded
     table: Dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "embed")),
@@ -138,6 +228,12 @@ def param_table(cfg: ModelConfig) -> Dict[str, Any]:
         {"blocks": [_stack_specs(_block_specs(cfg, k), st.repeat)
                     for k in st.block]}
         for st in find_stages(cfg.layer_pattern)]
+    if cfg.encoder is not None:
+        table["encoder"] = {
+            "blocks": _stack_specs(_encoder_block_specs(cfg),
+                                   cfg.encoder.n_layers),
+            "final_norm": ParamSpec((D,), ("norm",), "ones"),
+        }
     return table
 
 
@@ -176,6 +272,14 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return {p: s.shape for p, s in tree_leaves(param_table(cfg), _is_spec)}
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Analytic parameter count."""
-    return sum(math.prod(s) for s in param_shapes(cfg).values())
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count; with ``active_only``, MoE expert weights
+    count top_k / E of their size (the parameters a token runs through)."""
+    total = 0
+    for path, spec in tree_leaves(param_table(cfg), _is_spec):
+        n = math.prod(spec.shape)
+        if active_only and cfg.moe and "['mlp']" in path \
+                and "expert" in spec.logical:
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total

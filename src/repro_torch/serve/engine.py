@@ -10,6 +10,15 @@ Counterpart of ``repro.serve.engine``, with the same wave semantics:
   4. all rows decode together for gen_len greedy steps (paged attention on
      the card; ``torch.argmax`` takes the first maximum, as ``jnp.argmax``).
 
+With ``use_prefix_cache=False`` there is no AutumnKV: no lookup and no
+insert, every row prefilled and decoded.  ``serve_batch(requests,
+extras)`` passes the modality frontends' stubbed embeddings
+(``enc_frames`` for whisper's encoder, ``img_embeds`` for cross-attention
+image layers; numpy arrays or tensors, moved to the engine's device) to
+the prefill.  AutumnKV's keys are the prompt tokens alone, as in the
+reference: two requests with equal tokens and different extras share a
+cached state (ROADMAP C9).
+
 The engine runs on ``cuda:0`` unless it is given ``device="cpu"``, and
 raises where CUDA is absent.  Each wave records where its time went
 (``last_timings``: lookup, prefill, insert, each decode step), measured on
@@ -19,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -41,14 +50,15 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Pytree, batch: int,
-                 s_max: int, device=None):
+                 s_max: int, use_prefix_cache: bool = True, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg, tree_map(lambda t: t.to(self.device),
                                          params))
         self.batch = batch
         self.s_max = s_max
-        self.kv = AutumnKVCache(cfg, 1, s_max, device=self.device)
+        self.kv = AutumnKVCache(cfg, 1, s_max, device=self.device) \
+            if use_prefix_cache else None
         self.metrics: Dict[str, float] = {"prefill_tokens": 0,
                                           "decoded_tokens": 0,
                                           "cache_hits": 0, "batches": 0}
@@ -61,7 +71,9 @@ class ServeEngine:
 
     # ----------------------------------------------------------------- wave
     @torch.no_grad()
-    def serve_batch(self, requests: List[Request]) -> List[np.ndarray]:
+    def serve_batch(self, requests: List[Request],
+                    extras: Optional[Dict[str, Any]] = None
+                    ) -> List[np.ndarray]:
         if not 0 < len(requests) <= self.batch:
             raise ValueError(f"a wave holds 1..{self.batch} requests, got "
                              f"{len(requests)}")
@@ -70,21 +82,27 @@ class ServeEngine:
             raise ValueError("one wave = one prompt length (bucketing "
                              "upstream)")
         t0 = self._sync()
-        template = init_cache(self.cfg, 1, self.s_max, self.device)
-        # one batched store multi_get across the whole wave's page keys
-        got = self.kv.lookup_batch([r.prompt for r in requests], template)
-        hits = {i: g for i, g in enumerate(got) if g is not None}
+        hits: Dict[int, Pytree] = {}
+        if self.kv is not None:
+            template = init_cache(self.cfg, 1, self.s_max, self.device)
+            # one batched store multi_get across the whole wave's page keys
+            got = self.kv.lookup_batch([r.prompt for r in requests],
+                                       template)
+            hits = {i: g for i, g in enumerate(got) if g is not None}
         self.metrics["cache_hits"] += len(hits)
         t1 = self._sync()
         tokens = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int32)
                                             for r in requests])
                                   ).to(self.device)
+        extras = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in (extras or {}).items()}
         miss_idx = [i for i in range(len(requests)) if i not in hits]
-        logits, cache = self.model.prefill(tokens, self.s_max)
+        logits, cache = self.model.prefill(tokens, self.s_max, extras)
         self.metrics["prefill_tokens"] += S * len(miss_idx)
         t2 = self._sync()
-        for i in miss_idx:
-            self.kv.insert(requests[i].prompt, _batch_row(cache, i))
+        if self.kv is not None:
+            for i in miss_idx:
+                self.kv.insert(requests[i].prompt, _batch_row(cache, i))
         # splice hit rows into the batched cache (validates stored pages)
         for i, row_cache in hits.items():
             _set_batch_row(cache, row_cache, i)
@@ -110,8 +128,9 @@ class ServeEngine:
         return [out[i, :r.gen_len] for i, r in enumerate(requests)]
 
     def close(self) -> None:
-        """Retire the engine (the synchronous store holds no workers)."""
-        self.kv.close()
+        """Retire the engine: drain the prefix cache's background workers."""
+        if self.kv is not None:
+            self.kv.close()
 
 
 def _batch_row(cache: Pytree, i: int) -> Pytree:

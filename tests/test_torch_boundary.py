@@ -437,6 +437,59 @@ def test_attention_kernels_equal_plain_versions_on_the_card(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_head_dim_256_on_the_card(cuda, dtype):
+    """K4 and K3 past dh 128 (the reference's kernels block on any dh):
+    gemma3's and recurrentgemma's dh 256 with G 4 and 10, windowed,
+    non-causal with Sq != Sk, dh 192 and 250 (padded to 256; 250 takes
+    the element loads); the same bits twice; a group too wide for one
+    paged block raises instead of answering."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dt = getattr(torch, dtype)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    for B, Sq, Sk, H, KH, dh, causal, window in [
+            (2, 130, 130, 4, 1, 256, True, 64),
+            (1, 200, 200, 10, 1, 256, True, 0),
+            (1, 70, 200, 8, 2, 256, False, 0),
+            (1, 1, 90, 4, 1, 256, False, 0),
+            (1, 100, 100, 4, 2, 192, True, 30),
+            (1, 80, 80, 2, 1, 250, True, 0)]:
+        q, k, v = randn(B, Sq, H, dh), randn(B, Sk, KH, dh), \
+            randn(B, Sk, KH, dh)
+        got = attention.flash_cuda(q, k, v, causal=causal, window=window)
+        want = attention.flash_plain(q, k, v, causal=causal, window=window)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        assert torch.equal(got, attention.flash_cuda(q, k, v, causal=causal,
+                                                     window=window))
+    for B, H, KH, dh, page, P, lens in [
+            (2, 4, 1, 256, 64, 8, [512, 37]),
+            (2, 10, 1, 256, 64, 16, [1024, 700]),
+            (3, 10, 1, 256, 64, 32, [0, 1, 2048]),
+            (2, 8, 2, 200, 16, 5, [80, 3])]:
+        nphys = B * P + 2
+        q, kp, vp = randn(B, H, dh), randn(nphys, page, KH, dh), \
+            randn(nphys, page, KH, dh)
+        bt = torch.randint(0, nphys, (B, P), generator=g, device=cuda,
+                           dtype=torch.int32)
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = attention.paged_cuda(q, kp, vp, bt, ln)
+        want = attention.paged_plain(q, kp, vp, bt, ln)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        assert torch.equal(got, attention.paged_cuda(q, kp, vp, bt, ln))
+    q, kp = randn(1, 32, 256), randn(4, 64, 1, 256)
+    if dtype == "float32":                      # 32 heads x 64 chunks
+        with pytest.raises(ValueError, match="outputs one block holds"):
+            attention.paged_cuda(q, kp, kp, torch.zeros(
+                1, 4, dtype=torch.int32, device=cuda), torch.ones(
+                1, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernels_are_deterministic_on_the_card(cuda, dtype):
     """Two calls give the same bits; a paged row alone gives the bits it
     gets inside a batch of rows of other lengths."""

@@ -2,11 +2,14 @@
 
 * ``ServeEngine`` tokens equal the reference engine's, wave for wave, with
   the same hits, page writes and dedups, at float32 compute (weights carried
-  across through numpy);
+  across through numpy) for the dense family here, and for every other
+  family in ``test_torch_serve_families.py`` (with extras, with and
+  without the prefix cache, and the long-prompt ring case);
 * the reference's own serving tests (``tests/test_serve_kvcache.py``) pass
-  on the port for the ported architectures;
+  on the port for every architecture;
 * chain hashes are equal, and codec page and state blobs are byte-identical
-  to ``repro.kvcache.CacheCodec``'s for the same cache contents;
+  to ``repro.kvcache.CacheCodec``'s for the same cache contents (prompts
+  that fit every ring);
 * the engine runs on the card unless asked for the CPU.
 
 Every reference ``ServeEngine`` built here is closed (its store runs
@@ -21,13 +24,15 @@ import pytest
 import torch
 
 from repro.configs import get_smoke as ref_get_smoke
+from repro.data import stub_frontend_inputs as ref_stub_frontend_inputs
 from repro.kvcache import AutumnKVCache as RefKV
 from repro.kvcache import chain_hashes as ref_chain_hashes
 from repro.models import model as RM
 from repro.models.params import init_params as ref_init_params
 from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
-from repro_torch.configs import get_smoke
+from repro_torch.configs import ARCH_IDS, get_smoke
+from repro_torch.data import stub_frontend_inputs
 from repro_torch.kvcache import AutumnKVCache, chain_hashes
 from repro_torch.models import init_cache, init_params
 from repro_torch.models.convert import (cache_from_numpy, cache_to_numpy,
@@ -40,7 +45,8 @@ from repro_torch.serve import Request, ServeEngine
 # property tests: one intra-op thread per worker keeps them on time.
 torch.set_num_threads(1)
 
-ARCHS = ["qwen3_4b", "smollm_135m"]
+ARCHS = list(ARCH_IDS)
+DENSE_ARCHS = ["qwen3_4b", "smollm_135m"]
 
 
 def port_engine(cfg, batch=2, s_max=80, seed=0):
@@ -48,7 +54,14 @@ def port_engine(cfg, batch=2, s_max=80, seed=0):
     return ServeEngine(cfg, params, batch=batch, s_max=s_max, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def serve(eng, reqs):
+    """One wave with the smoke config's stubbed extras (none for a text
+    model)."""
+    return eng.serve_batch(reqs, stub_frontend_inputs(eng.cfg, len(reqs))
+                           or None)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_engine_tokens_equal_the_reference_engine(arch):
     ref_cfg = dataclasses.replace(ref_get_smoke(arch), compute_dtype="float32")
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
@@ -126,8 +139,8 @@ def test_hit_and_miss_paths_identical(arch):
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab, 64, dtype=np.int32)
     reqs = [Request(prompt, gen_len=4)] * 2
-    out1 = eng.serve_batch(reqs)
-    out2 = eng.serve_batch(reqs)
+    out1 = serve(eng, reqs)
+    out2 = serve(eng, reqs)
     for a, b in zip(out1, out2):
         np.testing.assert_array_equal(a, b)
     assert eng.kv.hits >= 2
@@ -139,7 +152,7 @@ def test_content_addressed_dedup(arch):
     eng = port_engine(cfg)
     rng = np.random.default_rng(2)
     p = rng.integers(0, cfg.vocab, 64, dtype=np.int32)
-    eng.serve_batch([Request(p, 2), Request(p, 2)])
+    serve(eng, [Request(p, 2), Request(p, 2)])
     s = eng.kv.stats()
     assert s["pages_written"] == 1 and s["pages_deduped"] == 1
 
@@ -151,8 +164,8 @@ def test_different_prompts_no_false_hits(arch):
     rng = np.random.default_rng(3)
     p1 = rng.integers(0, cfg.vocab, 64, dtype=np.int32)
     p2 = rng.integers(0, cfg.vocab, 64, dtype=np.int32)
-    eng.serve_batch([Request(p1, 2), Request(p1, 2)])
-    eng.serve_batch([Request(p2, 2), Request(p2, 2)])
+    serve(eng, [Request(p1, 2), Request(p1, 2)])
+    serve(eng, [Request(p2, 2), Request(p2, 2)])
     assert eng.kv.hits == 0
     assert eng.kv.pages_written == 2
 
@@ -174,13 +187,20 @@ def test_chain_hash_prefix_property_and_reference_equality():
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_codec_blobs_are_byte_identical(arch, compute_dtype):
-    ref_cfg = dataclasses.replace(ref_get_smoke(arch),
+    # the 64-token prompt fits every ring (a smoke window of 8 would wrap
+    # and move the ring into the state record, which the reference lacks)
+    window = max(get_smoke(arch).window, 64)
+    ref_cfg = dataclasses.replace(ref_get_smoke(arch), window=window,
                                   compute_dtype=compute_dtype)
-    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=compute_dtype)
+    cfg = dataclasses.replace(get_smoke(arch), window=window,
+                              compute_dtype=compute_dtype)
     params = ref_init_params(ref_cfg, jax.random.PRNGKey(5))
     rng = np.random.default_rng(5)
     toks = jnp.asarray(rng.integers(0, cfg.vocab, (1, 64)))
-    _, ref_cache = RM.prefill(params, {"tokens": toks}, ref_cfg, s_max=80)
+    extras = {k: jnp.asarray(v)
+              for k, v in ref_stub_frontend_inputs(ref_cfg, 1).items()}
+    _, ref_cache = RM.prefill(params, {"tokens": toks, **extras}, ref_cfg,
+                              s_max=80)
     ref_cache = jax.tree.map(np.asarray, ref_cache)
     cache = cache_from_numpy(ref_cache, device="cpu")
     for (_, a), (_, b) in zip(tree_leaves(cache_to_numpy(cache)),
@@ -189,18 +209,22 @@ def test_codec_blobs_are_byte_identical(arch, compute_dtype):
     ref_kv, kv = RefKV(ref_cfg, 1, 80), AutumnKVCache(cfg, 1, 80,
                                                       device="cpu")
     try:
+        assert kv.codec.wrapped_extents(64) == 0
         for page in (0, 1, 2):               # full, partial (64..80), past
-            assert kv.codec.page_bytes(cache, page) == \
+            assert kv.codec.page_bytes(cache, page, 64) == \
                 ref_kv.codec.page_bytes(ref_cache, page)
-        assert kv.codec.state_bytes(cache) == \
+        assert kv.codec.state_bytes(cache, 64) == \
             ref_kv.codec.state_bytes(ref_cache)
         # a blob written back restores the slice it came from
         blank = init_cache(cfg, 1, 80, device="cpu")
-        kv.codec.write_state(blank, kv.codec.state_bytes(cache))
-        kv.codec.write_page(blank, kv.codec.page_bytes(cache, 0), 0)
+        kv.codec.write_state(blank, kv.codec.state_bytes(cache, 64), 64)
+        kv.codec.write_page(blank, kv.codec.page_bytes(cache, 0, 64), 0, 64)
         assert int(blank["pos"]) == 64
-        for (_, a), (_, b) in zip(tree_leaves(cache), tree_leaves(blank)):
-            if a.dim():
+        for (_, a, lg), (_, b, _) in zip(kv.codec.leaves(cache),
+                                         kv.codec.leaves(blank)):
+            if "kv_seq" not in lg:            # the state record, whole
+                assert torch.equal(a, b)
+            else:
                 assert torch.equal(a[:, :, :64], b[:, :, :64])
                 assert not b[:, :, 64:].any()
     finally:
