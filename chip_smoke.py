@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card:
 
 ``--phases`` runs a subset of
 kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
-families (all by default; a subset ends in a {"partial": true} line instead of the kernels
+families,train (all by default; a subset ends in a {"partial": true} line instead of the kernels
 and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
@@ -101,9 +101,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 before it unchanged, no pin leaked, then a crash and
                 recovery keeping every write and the routing epoch; (c)
                 smollm_135m's parameters through the delta-checkpoint
-                store on one shard and on two: the unchanged leaves'
-                chunks skipped at step 1, crash, recovery and bit-exact
-                restores;
+                store on one shard (all 538 MB) and on two (the first 10
+                of 30 layers, a depth cut for the call's time): the
+                unchanged leaves' chunks skipped at step 1, crash,
+                recovery and bit-exact restores;
      kernel launches on phases 5, 5b, 6 and 6b, each store kernel's must
      be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
@@ -124,7 +125,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 mixtral_8x22b at 2 of 56 layers and llama32_vision_90b at
                 4 + 1 of 100 (``reduced``; neither fits one card whole),
                 warm equal to cold, no plain call; every family's smoke
-                config on the card and the CPU at float32, tokens equal.
+                config on the card and the CPU at float32, tokens equal;
+  9. train    — (a) smollm_135m at full width (fp32 parameters, bf16
+                compute, remat, global batch 8 x 2,048 tokens of
+                SyntheticTokens, AdamW with WSD): 3 warm-up and 10 timed
+                steps (step ms p50/p99, tokens/s), the loss at steps 0 and
+                13 (it must fall), two steps under the profiler (idle
+                share, top device operations), peak memory; (b) every
+                family's smoke config on the card and the CPU at float32:
+                every gradient leaf within 1e-4 of max(1, |leaf|), then
+                one train step (AdamW at lr 1e-4) with loss, grad norm
+                and every parameter within 1e-4; (c) the reference test's
+                trainer (smollm SMOKE, a checkpoint every 5 steps through a
+                CheckpointStore on the card): train(20) equal by bits to
+                train(12) + crash + restore at 10 + train(10..20), the
+                store kernels launched (counted by thread), save and
+                restore seconds.  Steps run
+                under torch.use_deterministic_algorithms with
+                CUBLAS_WORKSPACE_CONFIG=:4096:8, set at the start.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -136,6 +154,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2666,30 +2685,41 @@ def leaf_bits(torch, t):
     return t.detach().reshape(-1).view(torch.uint8)
 
 
+# layers of smollm_135m's 30 that phase 6b c's two-shard run saves: a
+# depth cut for the call's time budget (the one-shard run saves all 30)
+TWO_SHARD_CHECKPOINT_LAYERS = 10
+
+
 def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
-    """(c) smollm_135m's parameters at full size (random from the seed)
-    through the delta-checkpoint store on the card, with one shard and
-    with two: step 0, step 1 with a few leaves changed (the other leaves'
-    chunks skipped), then crash, recovery and restores of both steps."""
+    """(c) smollm_135m's parameters at full width (random from the seed)
+    through the delta-checkpoint store on the card, with one shard (all 30
+    layers, 538 MB) and with two (the first
+    ``TWO_SHARD_CHECKPOINT_LAYERS`` layers): step 0, step 1 with a few
+    leaves changed (the other leaves' chunks skipped), then crash,
+    recovery and restores of both steps."""
     from repro_torch.checkpoint import CHUNK_BYTES, CheckpointStore
     from repro_torch.checkpoint import store as ck_store
     from repro_torch.configs import get_config
     from repro_torch.models import count_params, init_params
+    from repro_torch.models.params import tree_map
     cfg = get_config("smollm_135m")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                         dev)
-    flat = list(ck_store._leaf_paths(params))
-    nbytes = sum(t.numel() * t.element_size() for _, t in flat)
-    chunks_of = {p: max(1, -(-t.numel() * t.element_size() // CHUNK_BYTES))
-                 for p, t in flat}
-    # a few leaves change between the steps: the final norm, the first
-    # stage's attention norm and one projection
-    changed = [p for p, _ in flat if "norm" in p][:2] \
-        + [p for p, t in flat if t.dim() >= 2][1:3]
-    step1 = {p: (t + 1.0 if p in changed else t) for p, t in flat}
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev)
     runs, bad = [], []
-    n_chunks = sum(chunks_of.values())
-    for shards in (1, 2):
+    for shards, layers in ((1, cfg.n_layers),
+                           (2, TWO_SHARD_CHECKPOINT_LAYERS)):
+        params = full if layers == cfg.n_layers else {
+            **full, "stages": tree_map(lambda t: t[:layers], full["stages"])}
+        flat = list(ck_store._leaf_paths(params))
+        nbytes = sum(t.numel() * t.element_size() for _, t in flat)
+        chunks_of = {p: max(1, -(-t.numel() * t.element_size()
+                                 // CHUNK_BYTES)) for p, t in flat}
+        # a few leaves change between the steps: the final norm, the first
+        # stage's attention norm and one projection
+        changed = [p for p, _ in flat if "norm" in p][:2] \
+            + [p for p, t in flat if t.dim() >= 2][1:3]
+        step1 = {p: (t + 1.0 if p in changed else t) for p, t in flat}
+        n_chunks = sum(chunks_of.values())
         # two shards split the chunk ids in half (the manifests, at 2^62
         # and up, go to the upper one)
         lsm = dataclasses.replace(
@@ -2731,7 +2761,9 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
             for p, t in flat) for step in (0, 1)}
         levels = st.db.num_levels_in_use
         runs.append(dict(
-            shards=shards, save0_s=save0_s,
+            shards=shards, layers=f"{layers} of {cfg.n_layers}",
+            bytes=nbytes, leaves=len(flat), changed_leaves=changed,
+            save0_s=save0_s,
             save0_mb_per_s=nbytes / 1e6 / save0_s, save1_s=save1_s,
             chunks=n_chunks, chunks_written_step1=written,
             chunks_skipped_step1=skipped, crash_recover_s=recover_s,
@@ -2752,8 +2784,9 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
         del st, got
         torch.cuda.empty_cache()
     out = dict(part="c_checkpoint", model=cfg.name,
-               params=count_params(cfg), leaves=len(flat), bytes=nbytes,
-               changed_leaves=changed, runs=runs)
+               params=count_params(cfg), runs=runs,
+               reduced=dict(two_shard_layers=f"{TWO_SHARD_CHECKPOINT_LAYERS}"
+                                             f" of {cfg.n_layers}"))
     return out, bad
 
 
@@ -2779,6 +2812,7 @@ def sharded_phase(torch, rt, ops, bloom, merge, seed: int, n_entries: int,
     plain = dict(ops.PLAIN_CALLS)
     out = dict(phase="sharded", part="summary",
                s=time.perf_counter() - t,
+               checkpoint_save0_mb_per_s=c["runs"][0]["save0_mb_per_s"],
                launches={k: launches[k] for k in STORE_KERNELS},
                plain_calls={k: v for k, v in plain.items() if v},
                max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -3056,8 +3090,279 @@ def families_phase(torch, ops, dev, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 9
+def leaves_equal_bits(torch, a, b) -> list:
+    """Paths of the leaves of two trees that differ in shape, dtype or a
+    bit."""
+    from repro_torch.models.params import tree_leaves
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["tree structure"]
+    return [p for (p, x), (_, y) in zip(la, lb)
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(leaf_bits(torch, x), leaf_bits(torch, y))]
+
+
+def train_full_part(torch, dev, seed: int, warmup: int = 3,
+                    timed: int = 10) -> tuple:
+    """(a) smollm_135m at full width: float32 parameters, bf16 compute,
+    remat as its config sets it, SyntheticTokens at global batch 8 x 2,048
+    (SmolLM's context), AdamW with WSD; ``warmup`` steps, then ``timed``
+    steps one by one (host clock, device synchronised), then two more
+    under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import count_params
+    from repro_torch.train import OptConfig
+    cfg = get_config("smollm_135m")
+    steps = warmup + timed
+    data = DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=8,
+                      seed=seed)
+    tr = Trainer(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                total_steps=steps + 2, schedule="wsd"),
+                 data, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tr.init(seed, try_restore=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    losses, step_ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = tr.train_step(tr.batch_for(tr.step))
+        tr.step += 1
+        losses.append(float(m["loss"]))          # synchronises
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    prof = profile_window(torch, lambda: [
+        tr.train_step(tr.batch_for(s)) for s in (steps, steps + 1)])
+    tokens = data.global_batch * data.seq_len
+    p50 = nearest_rank(step_ms, 50)
+    out = dict(part="a_smollm_full", model=cfg.name,
+               params=count_params(cfg), layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab,
+               compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+               remat2=cfg.remat2, q_chunk=cfg.q_chunk,
+               loss_chunk=cfg.loss_chunk, global_batch=data.global_batch,
+               seq_len=data.seq_len, tokens_per_step=tokens,
+               schedule="wsd", init_s=init_s, warmup_steps=warmup,
+               timed_steps=timed, step_ms=step_ms, step_ms_p50=p50,
+               step_ms_p99=nearest_rank(step_ms, 99),
+               tokens_per_s=tokens / (p50 / 1e3),
+               loss_step0=losses[0], loss_step13=losses[-1],
+               losses=losses, profile_two_steps=prof,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        bad.append(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    del tr
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def train_equivalence_part(torch, dev, seed: int) -> tuple:
+    """(b) Every family's smoke config (float32, B 2, S 16, stubbed extras)
+    from the same parameters and batch on the card and on the CPU: every
+    gradient leaf within 1e-4 of max(1, |leaf|), then one make_train_step
+    step (AdamW at lr 1e-4) with loss, grad_norm and every updated
+    parameter within 1e-4 (rtol and atol).  AdamW's first step is about
+    g / (|g| + eps): where a gradient is near eps (1e-8) a rounding of it
+    moves the update by up to lr; ``adam_lr_1e_3`` applies AdamW at lr 1e-3
+    to the card's and the CPU's gradients alike on the CPU and reports the
+    largest parameter difference and the two gradients under it."""
+    from repro_torch.configs import ARCH_IDS, get_smoke
+    from repro_torch.data import stub_frontend_inputs
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import init_params
+    from repro_torch.models import train as T
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import (OptConfig, adamw_update, init_opt_state,
+                                   make_train_step)
+    rows, bad = [], []
+    on = lambda tree: tree_map(lambda x: x.to(dev), tree)
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+        batch = {"tokens": tokens, "labels": np.roll(tokens, -1, 1),
+                 **stub_frontend_inputs(cfg, 2, seed)}
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        _, want_g = T.value_and_grad(params, batch, cfg)
+        with deterministic_algorithms():
+            _, got_g = T.value_and_grad(on(params), on(batch), cfg)
+        got_g = tree_map(lambda x: x.cpu(), got_g)
+        grad_err = max(float((a - b).abs().max())
+                       / max(1.0, float(b.abs().max()))
+                       for (_, a), (_, b) in zip(tree_leaves(got_g),
+                                                 tree_leaves(want_g)))
+        step = make_train_step(cfg, OptConfig(peak_lr=1e-4, warmup_steps=1,
+                                              total_steps=10))
+        want_p, _, want_m = step(params, init_opt_state(params), batch)
+        t = time.perf_counter()
+        with deterministic_algorithms():
+            got_p, _, got_m = step(on(params), init_opt_state(on(params)),
+                                   on(batch))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        errs = {k: abs(float(got_m[k]) - float(want_m[k]))
+                for k in ("loss", "grad_norm")}
+        ok = grad_err <= 1e-4 and all(
+            e <= 1e-4 + 1e-4 * abs(float(want_m[k])) for k, e in errs.items())
+        worst = 0.0
+        for (_, a), (_, b) in zip(tree_leaves(got_p), tree_leaves(want_p)):
+            a = a.cpu()
+            worst = max(worst, float((a - b).abs().max()))
+            ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-4))
+        opt3 = OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+        p_cpu = adamw_update(params, want_g, init_opt_state(params), opt3)[0]
+        p_card = adamw_update(params, got_g, init_opt_state(params), opt3)[0]
+        lr3 = dict(param_max_abs_err=0.0)
+        for (path, a), (_, b), (_, ga), (_, gb) in zip(
+                tree_leaves(p_card), tree_leaves(p_cpu),
+                tree_leaves(got_g), tree_leaves(want_g)):
+            d = (a - b).abs().flatten()
+            i = int(d.argmax())
+            if float(d[i]) > lr3["param_max_abs_err"]:
+                lr3 = dict(param_max_abs_err=float(d[i]), leaf=path,
+                           grad_card=float(ga.flatten()[i]),
+                           grad_cpu=float(gb.flatten()[i]))
+        rows.append(dict(model=cfg.name, loss=float(got_m["loss"]),
+                         grad_err_of_leaf_max=grad_err,
+                         loss_err=errs["loss"],
+                         grad_norm_err=errs["grad_norm"],
+                         param_max_abs_err=worst, card_step_s=card_s,
+                         within_1e_4=ok, adam_lr_1e_3=lr3))
+        if not ok:
+            bad.append(f"{cfg.name}: card step differs from the CPU's")
+    return dict(part="b_families_card_vs_cpu", compute_dtype="float32",
+                lr=1e-4, tolerance=1e-4, models=rows), bad
+
+
+def train_resume_part(torch, ops, bloom, merge, dev, seed: int) -> tuple:
+    """(c) The reference test's trainer (smollm_135m SMOKE, seq 32, batch 4,
+    WSD, a checkpoint every 5 steps) through a CheckpointStore on the card:
+    train(20) against train(12) + simulate_crash + restore at step 10 +
+    train(10..20), every parameter and optimizer leaf by bits; the store
+    kernels' launches by thread, save and restore seconds."""
+    from repro_torch.checkpoint import AsyncCheckpointer, CheckpointStore
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import SimulatedHostFailure, Trainer
+    from repro_torch.train import OptConfig
+    cfg = get_smoke("smollm_135m")
+    saves = []
+
+    def timed_store():
+        st = CheckpointStore(device=dev)
+        save = st.save
+
+        def timed_save(step, tree):
+            t = time.perf_counter()
+            out = save(step, tree)
+            torch.cuda.synchronize()
+            saves.append(time.perf_counter() - t)
+            return out
+        st.save = timed_save
+        return st
+
+    def mk():
+        return Trainer(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                      total_steps=20, schedule="wsd"),
+                       DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4),
+                       store=timed_store(), checkpoint_every=5, device=dev)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with launches_by_thread(bloom, merge) as by_thread:
+        tr1 = mk()
+        tr1.init(seed, try_restore=False)
+        tr1.run(20, log_every=100)
+        tr2 = mk()
+        tr2.init(seed, try_restore=False)
+        failed_at = None
+        try:
+            tr2.run(20, inject_failure_at=12, log_every=100)
+        except SimulatedHostFailure as e:
+            failed_at = e.step
+        t = time.perf_counter()
+        tr2.simulate_crash()
+        torch.cuda.synchronize()
+        crash_s = time.perf_counter() - t
+        t = time.perf_counter()
+        resumed = tr2.init(seed, try_restore=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        step_leaf = tr2.opt_state["step"]
+        tr2.ckpt = AsyncCheckpointer(tr2.store)
+        tr2.run(20, log_every=100)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    differ = leaves_equal_bits(torch, tr1.params, tr2.params)         + leaves_equal_bits(torch, tr1.opt_state, tr2.opt_state)
+    out = dict(part="c_crash_resume", model=cfg.name, seq_len=32,
+               global_batch=4, checkpoint_every=5, failed_at=failed_at,
+               resumed_at=resumed,
+               restored_step_leaf=[list(step_leaf.shape),
+                                   str(step_leaf.dtype), int(step_leaf)],
+               bit_exact=not differ, differing_leaves=differ[:8],
+               saves=len(saves), save_s=saves, crash_recover_s=crash_s,
+               restore_s=restore_s, part_s=time.perf_counter() - t0,
+               launches={k: launches[k] for k in STORE_KERNELS},
+               launches_by_thread=dict(sorted(by_thread.items())),
+               store_levels=tr2.store.db.num_levels_in_use)
+    bad = []
+    if failed_at != 12 or resumed != 10 or int(step_leaf) != 10 \
+            or step_leaf.shape != () or step_leaf.dtype != torch.int32:
+        bad.append(f"crash at {failed_at}, resumed at {resumed}, "
+                   f"step leaf {out['restored_step_leaf']}")
+    if differ:
+        bad.append(f"resume not bit-exact: {differ[:8]}")
+    idle = [k for k in STORE_KERNELS if launches[k] == 0]
+    if idle:
+        bad.append(f"store kernels not launched by the checkpoints: {idle}")
+    return out, bad
+
+
+def train_phase(torch, ops, bloom, merge, dev, seed: int,
+                phase6b=None) -> dict:
+    """Phase 9: training on the card (smollm_135m at full width, every
+    family's step against the CPU, crash and bit-exact resume through the
+    device checkpoint store).  The full-width state is not checkpointed
+    here: at phase 6b c's rate (its one-shard save of the parameters
+    alone, this call's when phase 6b ran) the parameters with AdamW's m
+    and v, three times the bytes, would take about three times as long."""
+    t = time.perf_counter()
+    a, bad_a = train_full_part(torch, dev, seed)
+    emit({"phase": "train", **a})
+    b, bad_b = train_equivalence_part(torch, dev, seed)
+    emit({"phase": "train", **b})
+    ops.reset_launch_counts()
+    c, bad_c = train_resume_part(torch, ops, bloom, merge, dev, seed)
+    emit({"phase": "train", **c})
+    launches = c["launches"]
+    plain = {k: v for k, v in ops.PLAIN_CALLS.items() if v}
+    out = dict(phase="train", part="summary", s=time.perf_counter() - t,
+               launches=launches, plain_calls=plain,
+               full_width_state_mb=a["params"] * 12 / 1e6,
+               full_width_save_estimate_s=None if phase6b is None
+               else a["params"] * 12 / 1e6
+               / phase6b["checkpoint_save0_mb_per_s"])
+    emit(out)
+    bad = bad_a + bad_b + bad_c
+    if plain:
+        bad.append(f"plain versions ran on the card's path: {plain}")
+    if bad:
+        raise AssertionError(f"train phase failed: {bad}")
+    return out
+
+
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
-          "durability", "sharded", "serve", "families")
+          "durability", "sharded", "serve", "families", "train")
 
 
 def main() -> int:
@@ -3078,6 +3383,9 @@ def main() -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    # deterministic cuBLAS for phase 9's bit-exact resume: read when the
+    # CUDA context is created, so set before torch touches the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
@@ -3153,13 +3461,14 @@ def main() -> int:
                                   args.entries, phase5)
         by_path["durability"] = phase6["launches"]
         torch.cuda.empty_cache()
+    phase6b = None
     if "sharded" in phases:
         if phase5 is not None and phase5_reads is None:
             raise AssertionError("phase 5's range reads were not kept for "
                                  "phase 6b's comparison")
-        by_path["sharded"] = sharded_phase(
-            torch, rt, ops, bloom, merge, args.seed, args.entries,
-            phase5_reads, phase6)["launches"]
+        phase6b = sharded_phase(torch, rt, ops, bloom, merge, args.seed,
+                                args.entries, phase5_reads, phase6)
+        by_path["sharded"] = phase6b["launches"]
         torch.cuda.empty_cache()
     if "serve" in phases:
         serve = serve_phase(torch, ops, dev, args.seed)
@@ -3172,6 +3481,9 @@ def main() -> int:
     if "families" in phases:
         by_path["families"] = families_phase(torch, ops, dev,
                                              args.seed)["launches"]
+    if "train" in phases:
+        by_path["train"] = train_phase(torch, ops, bloom, merge, dev,
+                                       args.seed, phase6b)["launches"]
     if list(phases) != list(PHASES):
         emit({"phase": "done", "s": time.perf_counter() - t_start})
         print(smi, flush=True)

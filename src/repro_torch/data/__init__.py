@@ -1,4 +1,7 @@
-"""Input data for the models (the stubbed modality frontends so far)."""
-from .pipeline import stub_frontend_inputs
+"""Input data for the models: the seekable token pipeline for training
+and the stubbed modality frontends."""
+from .pipeline import (DataConfig, MemmapCorpus, SyntheticTokens,
+                       stub_frontend_inputs)
 
-__all__ = ["stub_frontend_inputs"]
+__all__ = ["DataConfig", "MemmapCorpus", "SyntheticTokens",
+           "stub_frontend_inputs"]

@@ -1,11 +1,19 @@
-"""Per-kind blocks in prefill and decode modes.
+"""Per-kind blocks in train, prefill and decode modes.
 
 Counterpart of ``repro.models.blocks`` (``ring_positions``, the
-``*_prefill`` and ``*_decode`` of every kind, ``cross_kv``,
+``*_train``, ``*_prefill`` and ``*_decode`` of every kind, ``cross_kv``,
 ``_cross_attn``, the Mamba-2 and RG-LRU helpers and the routing tables
-``PREFILL`` and ``DECODE``).  Decode KV caches are ring buffers, as in the
-reference: the token at position ``pos`` goes to slot ``pos % s_cache``,
-and a ``lattn`` ring holds ``min(window, s_max)`` slots.
+``TRAIN``, ``PREFILL`` and ``DECODE``).
+
+A train block takes ``(kind, params, x, ctx, cfg)`` and returns ``(x,
+aux)``, the MoE load-balancing loss of its MLP (0 without one), with no
+cache.  Its attention is :func:`.layers.gqa_attention` in differentiable
+torch ops, the reference's training route; ``ctx`` holds ``positions``
+and, where the model has them, ``enc_out`` and ``img_embeds``.
+
+Decode KV caches are ring buffers, as in the reference: the token at
+position ``pos`` goes to slot ``pos % s_cache``, and a ``lattn`` ring
+holds ``min(window, s_max)`` slots.
 
 Attention goes through :mod:`..kernels.ops`.  Prefill calls
 ``flash_attention`` (the reference computes it with XLA
@@ -22,9 +30,9 @@ and after it wraps every slot holds a position in
 ``s_cache <= window``; the softmax does not depend on the order of the
 slots.
 
-A block takes ``(kind, params, x, cache, ctx, cfg)``, writes its layer's
-slice of the model's one cache tree in place and returns the residual
-stream.  ``ctx`` holds ``positions`` (prefill), ``enc_out`` and
+A serving block takes ``(kind, params, x, cache, ctx, cfg)``, writes its
+layer's slice of the model's one cache tree in place and returns the
+residual stream.  ``ctx`` holds ``positions`` (prefill), ``enc_out`` and
 ``img_embeds`` (prefill, cross-attention sources), and ``pos`` and
 ``tables`` (decode: ``tables[s_cache]`` is the ``(block_tables,
 lengths)`` pair of the caches of that extent).
@@ -39,8 +47,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import (attn_output, attn_project_qkv, causal_conv1d,
-                     causal_conv1d_step, mlp, proj, rglru_scan, rglru_step,
-                     rms_norm, ssd_scan, ssd_step)
+                     causal_conv1d_step, gqa_attention, mlp, mlp_train, proj,
+                     rglru_scan, rglru_step, rms_norm, ssd_scan, ssd_step)
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -64,6 +72,26 @@ def decode_page(s_cache: int) -> int:
 
 def _mlp_out(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+
+
+def _mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """(MLP output, aux loss) of the block's MLP, for training."""
+    return mlp_train(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+
+
+def _attend_train(p: Params, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cfg: ModelConfig, q_pos: torch.Tensor,
+                  k_pos: torch.Tensor, causal: bool, window) -> torch.Tensor:
+    o = gqa_attention(q, k, v, q_positions=q_pos, k_positions=k_pos,
+                      causal=causal, window=window, q_chunk=cfg.q_chunk,
+                      scores_dtype=cfg.scores_dtype)
+    return attn_output(p, o)
+
+
+def _self_attn_train(p: Params, h: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor, window) -> torch.Tensor:
+    q, k, v = attn_project_qkv(p, h, cfg, positions)
+    return _attend_train(p, q, k, v, cfg, positions, positions, True, window)
 
 
 # ====================================================================== attn
@@ -106,6 +134,16 @@ def attn_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
     return x + _mlp_out(p, x, cfg)
 
 
+def attn_train(kind: str, p: Params, x: torch.Tensor, ctx: Ctx,
+               cfg: ModelConfig):
+    """One layer over the whole sequence with no cache: (x, aux)."""
+    window = cfg.window if kind == "lattn" else None
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    x = x + _self_attn_train(p, h, cfg, ctx["positions"], window)
+    y, aux = _mlp_train(p, x, cfg)
+    return x + y, aux
+
+
 # ================================================================ cross-attn
 def cross_kv(p: Params, src: torch.Tensor, cfg: ModelConfig):
     """Cross-attention K and V of a source sequence (B, T, D)."""
@@ -135,6 +173,28 @@ def _xattn(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     x = x + _gate(p["xgate"], x) * cross_attn(p, h, k, v, cfg)
     return x + _gate(p["mgate"], x) * _mlp_out(p, x, cfg)
+
+
+def _cross_attn_train(p: Params, h: torch.Tensor, src_k: torch.Tensor,
+                      src_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every query over every source position, in ``gqa_attention``
+    (positions all 0, non-causal: no mask)."""
+    q = proj(h, p["wq"])
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    kpos = torch.zeros(1, src_k.shape[1], dtype=torch.int32,
+                       device=h.device)
+    qpos = torch.zeros(h.shape[:2], dtype=torch.int32, device=h.device)
+    return _attend_train(p, q, src_k, src_v, cfg, qpos, kpos, False, None)
+
+
+def xattn_train(kind: str, p: Params, x: torch.Tensor, ctx: Ctx,
+                cfg: ModelConfig):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    k, v = cross_kv(p, ctx["img_embeds"], cfg)
+    x = x + _gate(p["xgate"], x) * _cross_attn_train(p, h, k, v, cfg)
+    y, aux = _mlp_train(p, x, cfg)
+    return x + _gate(p["mgate"], x) * y, aux
 
 
 def xattn_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
@@ -175,6 +235,17 @@ def wdec_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
     return _wdec_cross(p, x, k, v, cfg)
 
 
+def wdec_train(kind: str, p: Params, x: torch.Tensor, ctx: Ctx,
+               cfg: ModelConfig):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    x = x + _self_attn_train(p, h, cfg, ctx["positions"], None)
+    hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    k, v = cross_kv(p["x"], ctx["enc_out"], cfg)
+    x = x + _cross_attn_train(p["x"], hx, k, v, cfg)
+    y, aux = _mlp_train(p, x, cfg)
+    return x + y, aux
+
+
 def wdec_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
                 ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
     x = attn_decode("attn", {**p, "mlp": _NOOP_MLP}, _self_cache(cache), x,
@@ -208,21 +279,27 @@ def _ssd_chunk(S: int, pref: int) -> int:
     return 1
 
 
+def _ssd_mix(p: Params, x: torch.Tensor, y: torch.Tensor, xh: torch.Tensor,
+             z: torch.Tensor, d_skip: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """y + D x, gated norm, out projection, residual."""
+    y = (y + xh * d_skip.to(x.dtype)).reshape(z.shape)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return x + y @ p["out_proj"]
+
+
 def _ssd_out(p: Params, x: torch.Tensor, y: torch.Tensor, xh: torch.Tensor,
              z: torch.Tensor, d_skip: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
-    """y + D x, gated norm, out projection, residual (and the MLP, where
-    the block has one)."""
-    y = (y + xh * d_skip.to(x.dtype)).reshape(z.shape)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    x = x + y @ p["out_proj"]
+    """:func:`_ssd_mix` and the MLP, where the block has one."""
+    x = _ssd_mix(p, x, y, xh, z, d_skip, cfg)
     if "mlp" in p:
         x = x + _mlp_out(p, x, cfg)
     return x
 
 
-def ssd_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
-                ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+def _ssd_core(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The block up to the scan: (z, the conv input, xh, dt, A, B, C)."""
     s = cfg.ssm
     z, conv_in, dt_raw, d_inner, H = _ssd_proj(p, x, cfg)
     xBC = F.silu(causal_conv1d(conv_in, p["conv_w"], p["conv_b"]))
@@ -231,6 +308,25 @@ def ssd_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
     xh = xs.reshape(B_, S, H, s.head_dim)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
+    return z, conv_in, xh, dt, A, Bm, Cm
+
+
+def ssd_train(kind: str, p: Params, x: torch.Tensor, ctx: Ctx,
+              cfg: ModelConfig):
+    z, _, xh, dt, A, Bm, Cm = _ssd_core(p, x, cfg)
+    y, _ = ssd_scan(xh, dt, A, Bm, Cm, _ssd_chunk(x.shape[1], cfg.ssm.chunk))
+    x = _ssd_mix(p, x, y, xh, z, p["D"].float()[None, None, :, None], cfg)
+    if "mlp" in p:
+        y2, aux = _mlp_train(p, x, cfg)
+        return x + y2, aux
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def ssd_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
+                ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
+    s = cfg.ssm
+    z, conv_in, xh, dt, A, Bm, Cm = _ssd_core(p, x, cfg)
+    S = x.shape[1]
     y, state = ssd_scan(xh, dt, A, Bm, Cm, _ssd_chunk(S, s.chunk))
     cache["state"].copy_(state)
     cache["conv"].copy_(conv_in[:, S - (s.conv_width - 1):])
@@ -290,6 +386,17 @@ def rglru_prefill(kind: str, p: Params, x: torch.Tensor, cache: Cache,
     return x + _mlp_out(p, x, cfg)
 
 
+def rglru_train(kind: str, p: Params, x: torch.Tensor, ctx: Ctx,
+                cfg: ModelConfig):
+    u, gate = _rglru_gates(p, x, cfg)
+    u = causal_conv1d(u, p["conv_w"], p["conv_b"])
+    r, i = _rglru_ri(p, u)
+    h, _ = rglru_scan(u, r, i, p["Lambda"], cfg.rglru.power)
+    x = x + (h * gate) @ p["wout"]
+    y, aux = _mlp_train(p, x, cfg)
+    return x + y, aux
+
+
 def rglru_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
                  ctx: Ctx, cfg: ModelConfig) -> torch.Tensor:
     u_raw, gate = _rglru_gates(p, x, cfg)
@@ -305,6 +412,8 @@ def rglru_decode(kind: str, p: Params, cache: Cache, x: torch.Tensor,
 
 
 # ------------------------------------------------------------------ routing
+TRAIN = {"attn": attn_train, "lattn": attn_train, "xattn": xattn_train,
+         "wdec": wdec_train, "ssd": ssd_train, "rglru": rglru_train}
 PREFILL = {"attn": attn_prefill, "lattn": attn_prefill,
            "xattn": xattn_prefill, "wdec": wdec_prefill,
            "ssd": ssd_prefill, "rglru": rglru_prefill}

@@ -103,13 +103,13 @@ class ModelConfig:
     encoder: Optional[EncoderConfig] = None
     vision: Optional[VisionConfig] = None
     max_seq_len: int = 131_072
-    q_chunk: int = 1024              # reference's score-buffer bound (unused here)
+    q_chunk: int = 1024              # score-buffer bound (training attention)
     loss_chunk: int = 1024           # vocab-loss seq chunking (memory lever)
     pad_vocab_to: int = 256          # TP-divisible vocab padding
     scores_dtype: str = "float32"    # reference's score dtype (kernels: fp32)
     # long_500k applicability: True only for sub-quadratic stacks
     subquadratic: bool = False
-    # the reference's distribution knobs (no training in the port yet)
+    # rematerialisation in training (models/train.py), and dtypes
     remat: bool = True
     remat2: bool = False
     param_dtype: str = "float32"

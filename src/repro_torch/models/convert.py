@@ -4,10 +4,12 @@
 arrays (for example the reference's ``init_params`` output passed through
 ``numpy.asarray``) to torch tensors on a device, checking every leaf
 against this package's parameter table; ``params_to_numpy`` is its
-inverse.  ``cache_from_numpy`` and ``cache_to_numpy`` do the same for
-decode caches.  Like the rest of the package, each puts its tensors on
-``cuda:0`` unless it is given ``device="cpu"``, and raises where CUDA is
-absent.  NumPy has no bfloat16 of its own: an ``ml_dtypes.bfloat16``
+inverse.  ``opt_state_from_numpy`` does the same for an AdamW state (the
+float32 moments ``m`` and ``v``, the 0-dim int32 ``step`` and, where it
+has one, the float32 ``master`` copy), and ``cache_from_numpy`` and
+``cache_to_numpy`` for decode caches.  Like the rest of the package,
+each puts its tensors on ``cuda:0`` unless it is given ``device="cpu"``,
+and raises where CUDA is absent.  NumPy has no bfloat16 of its own: an ``ml_dtypes.bfloat16``
 array is read through a uint16 view, and a bfloat16 tensor comes back as
 its uint16 bit pattern, so the bytes on both sides are the same.
 """
@@ -61,6 +63,33 @@ def params_from_numpy(tree: Pytree, cfg: ModelConfig, device=None) -> Pytree:
 
 def params_to_numpy(params: Pytree) -> Pytree:
     return tree_map(tensor_to_numpy, params)
+
+
+def opt_state_from_numpy(state: Pytree, cfg: ModelConfig,
+                         device=None) -> Pytree:
+    """A reference AdamW state (numpy leaves) as torch tensors: every
+    moment (and master) leaf checked against the parameter table and kept
+    in float32, ``step`` a 0-dim int32."""
+    device = resolve_device(device)
+
+    def moments(tree):
+        def one(spec: ParamSpec, arr):
+            arr = np.asarray(arr)
+            if tuple(arr.shape) != spec.shape or arr.dtype != np.float32:
+                raise ValueError(f"optimizer leaf {arr.shape} {arr.dtype} "
+                                 f"!= {spec.shape} float32")
+            return tensor_from_numpy(arr, device)
+        return tree_map(one, param_table(cfg), tree,
+                        is_leaf=lambda x: isinstance(x, ParamSpec))
+
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step {step.shape} {step.dtype} != () int32")
+    out = {"m": moments(state["m"]), "v": moments(state["v"]),
+           "step": tensor_from_numpy(step, device)}
+    if "master" in state:
+        out["master"] = moments(state["master"])
+    return out
 
 
 def cache_from_numpy(tree: Pytree, device=None) -> Pytree:

@@ -1,9 +1,9 @@
 """Compute layers shared by every architecture family, in PyTorch.
 
 Counterpart of ``repro.models.layers`` (``rms_norm``, ``rope``,
-``attn_project_qkv``, ``attn_output``, ``dense_mlp``, ``moe_mlp``, ``mlp``,
-``causal_conv1d``/``_step``, ``_segsum``, ``ssd_scan``/``ssd_step`` and
-``rglru_scan``/``rglru_step``).  Conventions are the reference's:
+``_mask_bias``, ``gqa_attention``, ``attn_project_qkv``, ``attn_output``,
+``dense_mlp``, ``moe_mlp``, ``mlp``, ``causal_conv1d``/``_step``,
+``_segsum``, ``ssd_scan``/``ssd_step`` and ``rglru_scan``/``rglru_step``).  Conventions are the reference's:
   x          : (B, S, D) activations in the compute dtype
   attention  : q (B, S, H, dh), k/v (B, S, KH, dh); GQA groups G = H // KH
 Softmax, norm, scan and gate statistics are computed in float32.  Weight
@@ -11,9 +11,11 @@ matrices arrive already in the compute dtype (:class:`.model.Model` keeps
 one copy made at load), which rounds exactly as the reference's per-einsum
 ``.astype``; vectors and the few matrices the reference reads in float32
 (the router, the conv taps) keep the parameter dtype and are cast here as
-the reference casts them.  Attention itself is in :mod:`..kernels` (flash
-for prefill, cross-attention and the encoder, paged for decode); there is
-no sharding callback.
+the reference casts them.  Serving attention is in :mod:`..kernels`
+(flash for prefill, cross-attention and the encoder, paged for decode);
+training attention is :func:`gqa_attention`, the reference's own route in
+differentiable ops, and :func:`mlp_train` keeps the MoE aux loss that the
+serving :func:`mlp` drops.  There is no sharding callback.
 
 The reference's sequential scans become loops (``ssd_scan``'s inter-chunk
 recurrence, one step per chunk) or a log-depth scan (``rglru_scan``, in
@@ -28,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .config import ModelConfig
+from .config import ModelConfig, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -52,6 +54,99 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+NEG_INF = -1e30
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int],
+               k_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """(..., Sq, Sk) float32 additive bias; ``window`` counts positions
+    (q - window, q]."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    ok = kp >= 0     # ring slots never written carry negative positions
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    if k_len is not None:
+        ok = ok & (kp < k_len)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _dot(eq: str, a: torch.Tensor, b: torch.Tensor,
+         out_dtype: torch.dtype) -> torch.Tensor:
+    """einsum with the reference's ``preferred_element_type``: float32
+    output from float32 arithmetic on the (exactly widened) inputs."""
+    if out_dtype == torch.float32:
+        return torch.einsum(eq, a.float(), b.float())
+    return torch.einsum(eq, a, b).to(out_dtype)
+
+
+def _repeat_kv(t: torch.Tensor, G: int) -> torch.Tensor:
+    """``jnp.repeat(t, G, axis=2)`` as a broadcast: its backward is a sum
+    over the G copies, with no index scatter."""
+    B, S, KH, dh = t.shape
+    return t[:, :, :, None].expand(B, S, KH, G, dh).reshape(B, S, KH * G, dh)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_positions: torch.Tensor, k_positions: torch.Tensor,
+                  causal: bool, window: Optional[int],
+                  k_len: Optional[torch.Tensor] = None,
+                  q_chunk: int = 1024,
+                  scores_dtype: str = "float32") -> torch.Tensor:
+    """The reference's training attention (``repro.models.layers``
+    ``gqa_attention``) in differentiable torch ops: the repeat-KV form,
+    scores in ``scores_dtype``, the softmax max held out of the gradient,
+    the normaliser floored at 1e-30 and folded into the (C, dh) output,
+    queries in ``q_chunk`` blocks, and the grouped route for one query.
+
+    q: (B, Sq, H, dh), k/v: (B, Sk, KH, dh), H = G KH; output in q's dtype.
+    This is the reference's own route for training: its training path
+    reaches no Pallas kernel, and neither package's flash kernel has a
+    backward, so serving's ``ops.flash_attention`` is not used here.
+    """
+    B, Sq, H, dh = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(dh)
+    sdt = torch_dtype(scores_dtype)
+
+    if Sq == 1 and G > 1:
+        qg = q.reshape(B, 1, KH, G, dh)
+        s = _dot("bqkgd,bskd->bkgqs", qg, k, sdt) * scale
+        bias = _mask_bias(q_positions, k_positions, causal, window, k_len)
+        s = s + bias[:, None, None].to(sdt)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m.detach())
+        l = torch.sum(p, dim=-1, keepdim=True)
+        o = _dot("bkgqs,bskd->bqkgd", p.to(v.dtype), v, torch.float32)
+        o = o / torch.clamp(l.permute(0, 3, 1, 2, 4), min=1e-30).float()
+        return o.reshape(B, 1, H, dh).to(q.dtype)
+
+    if G > 1:
+        k, v = _repeat_kv(k, G), _repeat_kv(v, G)
+
+    def attend(q_blk: torch.Tensor, qpos_blk: torch.Tensor) -> torch.Tensor:
+        s = _dot("bqhd,bshd->bhqs", q_blk, k, sdt) * scale
+        bias = _mask_bias(qpos_blk, k_positions, causal, window, k_len)
+        s = s + bias[:, None].to(sdt)                 # (B, H, C, Sk)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m.detach())
+        l = torch.sum(p, dim=-1, keepdim=True)        # (B, H, C, 1)
+        o = _dot("bhqs,bshd->bqhd", p.to(v.dtype), v, torch.float32)
+        o = o / torch.clamp(l.transpose(1, 2), min=1e-30).float()
+        return o.to(q.dtype)
+
+    if Sq <= q_chunk or Sq % q_chunk != 0:
+        return attend(q, q_positions)
+    return torch.cat([attend(q[:, c:c + q_chunk],
+                             q_positions[..., c:c + q_chunk])
+                      for c in range(0, Sq, q_chunk)], dim=1)
 
 
 def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -162,6 +257,17 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
     for j in range(1, K):
         out = out + yk[:, :, j]
     return out, aux
+
+
+def mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP output and its load-balancing aux loss (0 for a
+    dense MLP or none), as the reference's ``mlp`` returns them."""
+    if not p:
+        return torch.zeros_like(x), x.new_zeros((), dtype=torch.float32)
+    if cfg.moe is not None and "router" in p:
+        return moe_mlp(p, x, cfg)
+    return dense_mlp(p, x), x.new_zeros((), dtype=torch.float32)
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

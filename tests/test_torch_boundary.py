@@ -15,10 +15,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-import repro_torch as rt
-from repro_torch.kernels import attention, bloom, merge, ops
+# deterministic cuBLAS for the training check on the card: read when the
+# CUDA context is created, so set before torch touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+
+import repro_torch as rt  # noqa: E402
+from repro_torch.kernels import attention, bloom, merge, ops  # noqa: E402
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
 # property tests: one intra-op thread per worker keeps them on time.
@@ -799,3 +804,50 @@ def test_make_store_sharded_lands_on_cuda_0(cuda):
     assert db.multi_get([5, 2**63 + 5, 7000]) == [b"v", b"v", None]
     assert all(r.keys.device.type == "cuda"
                for s in db.shards for lvl in s._levels for r in lvl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm_135m", "granite_moe_1b_a400m",
+                                  "mamba2_130m"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """A smoke config (float32) on the card, under deterministic
+    algorithms, against the CPU from the same parameters and batch: every
+    gradient leaf within 1e-4 of max(1, |leaf|); one make_train_step step
+    (AdamW at lr 1e-4: its first step is about g / (|g| + 1e-8), so a
+    gradient near 1e-8 moves the update by up to lr when it rounds
+    otherwise) with loss, grad norm and every updated parameter within
+    1e-4 (rtol and atol); a second step on the card gives the same bits."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.models import init_params
+    from repro_torch.models import train as T
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)),
+             "labels": torch.from_numpy(np.roll(tokens, -1, 1))}
+    on = lambda tree: tree_map(lambda t: t.to(cuda), tree)
+    _, want_g = T.value_and_grad(params, batch, cfg)
+    with deterministic_algorithms():
+        _, got_g = T.value_and_grad(on(params), on(batch), cfg)
+    for (path, a), (_, b) in zip(tree_leaves(got_g), tree_leaves(want_g)):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=tol), path
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-4, warmup_steps=1,
+                                          total_steps=10))
+    want_p, _, want_m = step(params, init_opt_state(params), batch)
+    with deterministic_algorithms():
+        runs = [step(on(params), init_opt_state(on(params)), on(batch))
+                for _ in range(2)]
+    got_p, _, got_m = runs[0]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got_m[k]) - float(want_m[k])) <= \
+            1e-4 + 1e-4 * abs(float(want_m[k])), k
+    for (path, a), (_, b) in zip(tree_leaves(got_p), tree_leaves(want_p)):
+        assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4), path
+    for (path, a), (_, b) in zip(tree_leaves(got_p),
+                                 tree_leaves(runs[1][0])):
+        assert torch.equal(a.view(-1).view(torch.uint8),
+                           b.view(-1).view(torch.uint8)), path
