@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card:
 
 ``--phases`` runs a subset of
 kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
-families,train (all by default; a subset ends in a {"partial": true} line instead of the kernels
+families,train,mesh (all by default; a subset ends in a {"partial": true} line instead of the kernels
 and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
@@ -101,10 +101,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 before it unchanged, no pin leaked, then a crash and
                 recovery keeping every write and the routing epoch; (c)
                 smollm_135m's parameters through the delta-checkpoint
-                store on one shard (all 538 MB) and on two (the first 10
-                of 30 layers, a depth cut for the call's time): the
-                unchanged leaves' chunks skipped at step 1, crash,
-                recovery and bit-exact restores;
+                store on one shard and on two, each the first 2 of 30
+                layers (a depth cut for the call's time): the unchanged
+                leaves' chunks skipped at step 1, crash, recovery and
+                bit-exact restores;
      kernel launches on phases 5, 5b, 6 and 6b, each store kernel's must
      be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
@@ -142,7 +142,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 store kernels launched (counted by thread), save and
                 restore seconds.  Steps run
                 under torch.use_deterministic_algorithms with
-                CUBLAS_WORKSPACE_CONFIG=:4096:8, set at the start.
+                CUBLAS_WORKSPACE_CONFIG=:4096:8, set at the start;
+  10. mesh    — the same paths on a (1, 1) device mesh of the card
+                (launch.sharding's Sharder; ROADMAP A16a): (a) one warm wave
+                of phase 7's qwen3_4b (its weights and AutumnKV store, the
+                store drained) through ServeEngine(shard=...) and then
+                without the mesh, back to back: equal tokens, K3 and K4
+                launched and no plain call; then both engines' decode
+                steps in turns: p50 on the mesh at most 1.10x; (b) smollm_135m at full width, phase 9's batch,
+                Trainer(mesh=(1, 1)) and phase 9's meshless trainer from
+                the same start, three steps each in turns: losses and
+                every parameter and AdamW leaf equal by bits, step p50 at
+                most 1.10x; (c) phase 9 c's crash and bit-exact resume on
+                the mesh; then (d) K3's partials entry on each half of
+                phase 3's decode pages, merged as two ranks merge them,
+                against one K3 call over all of them (the same bits twice).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -214,7 +228,14 @@ STORE_KERNELS = ("bloom_probe", "bloom_build", "merge_pair")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2685,18 +2706,19 @@ def leaf_bits(torch, t):
     return t.detach().reshape(-1).view(torch.uint8)
 
 
-# layers of smollm_135m's 30 that phase 6b c's two-shard run saves: a
-# depth cut for the call's time budget (the one-shard run saves all 30)
-TWO_SHARD_CHECKPOINT_LAYERS = 10
+# layers of smollm_135m's 30 that phase 6b c's one- and two-shard runs
+# save: a depth cut for the call's time budget (on H100 hosts the script
+# took 1,318.6 s with all 30 on one shard and 993.3 s with 10 on each,
+# against its 1,000 s)
+CHECKPOINT_LAYERS = 2
 
 
 def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
-    """(c) smollm_135m's parameters at full width (random from the seed)
-    through the delta-checkpoint store on the card, with one shard (all 30
-    layers, 538 MB) and with two (the first
-    ``TWO_SHARD_CHECKPOINT_LAYERS`` layers): step 0, step 1 with a few
-    leaves changed (the other leaves' chunks skipped), then crash,
-    recovery and restores of both steps."""
+    """(c) smollm_135m's parameters at full width (random from the seed),
+    the first ``CHECKPOINT_LAYERS`` layers of its stage with the embedding,
+    through the delta-checkpoint store on the card, with one shard and
+    with two: step 0, step 1 with a few leaves changed (the other leaves'
+    chunks skipped), then crash, recovery and restores of both steps."""
     from repro_torch.checkpoint import CHUNK_BYTES, CheckpointStore
     from repro_torch.checkpoint import store as ck_store
     from repro_torch.configs import get_config
@@ -2706,8 +2728,7 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
     full = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                        dev)
     runs, bad = [], []
-    for shards, layers in ((1, cfg.n_layers),
-                           (2, TWO_SHARD_CHECKPOINT_LAYERS)):
+    for shards, layers in ((1, CHECKPOINT_LAYERS), (2, CHECKPOINT_LAYERS)):
         params = full if layers == cfg.n_layers else {
             **full, "stages": tree_map(lambda t: t[:layers], full["stages"])}
         flat = list(ck_store._leaf_paths(params))
@@ -2785,8 +2806,10 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
         torch.cuda.empty_cache()
     out = dict(part="c_checkpoint", model=cfg.name,
                params=count_params(cfg), runs=runs,
-               reduced=dict(two_shard_layers=f"{TWO_SHARD_CHECKPOINT_LAYERS}"
-                                             f" of {cfg.n_layers}"))
+               reduced=dict(one_shard_layers=f"{CHECKPOINT_LAYERS} of "
+                                             f"{cfg.n_layers}",
+                            two_shard_layers=f"{CHECKPOINT_LAYERS} of "
+                                             f"{cfg.n_layers}"))
     return out, bad
 
 
@@ -2833,14 +2856,16 @@ ATTN_KERNELS = ("flash_attention", "paged_attention")
 
 def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
                n_waves: int = 3, extras=None, use_prefix_cache: bool = True,
-               reduced=None, profile: bool = False, after=None) -> dict:
+               reduced=None, profile: bool = False, after=None,
+               keep=None) -> dict:
     """One configuration at full width (random weights from the seed) over
     AutumnKV, or with no prefix cache: the waves of
     examples/serve_autumnkv.py at 4 x 512-token prompts (8 pages each) and
     16 decoded tokens (cold, warm, then mixed when ``n_waves`` is 3), every
     check of the reference's semantics, the launches of this run alone.
     ``after(eng, rng, shared)`` runs more requests on the same engine and
-    returns (records, checks).  The engine is freed before returning."""
+    returns (records, checks).  The engine is freed before returning,
+    unless ``keep`` (a dict) takes it and the waves' shared prompt."""
     from repro_torch.models import count_params, init_params
     from repro_torch.models.blocks import SELF_ATTN_KINDS
     from repro_torch.serve import Request, ServeEngine
@@ -2971,7 +2996,10 @@ def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                checks=checks)
     emit(out)
-    eng.close()
+    if keep is not None:
+        keep.update(engine=eng, shared=shared)
+    else:
+        eng.close()
     del eng
     torch.cuda.empty_cache()
     bad = [k for k, ok in checks.items() if not ok]
@@ -2980,11 +3008,11 @@ def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
     return out
 
 
-def serve_phase(torch, ops, dev, seed: int) -> dict:
+def serve_phase(torch, ops, dev, seed: int, keep=None) -> dict:
     """qwen3_4b at full width over AutumnKV: cold, warm and mixed waves."""
     from repro_torch.configs import get_config
     return serve_cell(torch, ops, dev, seed, get_config("qwen3_4b"), "serve",
-                      profile=True)
+                      profile=True, keep=keep)
 
 
 def serve_equivalence(torch, dev, seed: int, arch: str = "qwen3_4b"
@@ -3243,12 +3271,15 @@ def train_equivalence_part(torch, dev, seed: int) -> tuple:
                 lr=1e-4, tolerance=1e-4, models=rows), bad
 
 
-def train_resume_part(torch, ops, bloom, merge, dev, seed: int) -> tuple:
+def train_resume_part(torch, ops, bloom, merge, dev, seed: int,
+                      mesh=None) -> tuple:
     """(c) The reference test's trainer (smollm_135m SMOKE, seq 32, batch 4,
     WSD, a checkpoint every 5 steps) through a CheckpointStore on the card:
     train(20) against train(12) + simulate_crash + restore at step 10 +
     train(10..20), every parameter and optimizer leaf by bits; the store
-    kernels' launches by thread, save and restore seconds."""
+    kernels' launches by thread, save and restore seconds.  ``mesh``: the
+    trainers' device mesh shape."""
+    from repro_torch.launch.sharding import full_tree
     from repro_torch.checkpoint import AsyncCheckpointer, CheckpointStore
     from repro_torch.configs import get_smoke
     from repro_torch.data import DataConfig
@@ -3275,7 +3306,8 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int) -> tuple:
                                       total_steps=20, schedule="wsd"),
                        DataConfig(vocab=cfg.vocab, seq_len=32,
                                   global_batch=4),
-                       store=timed_store(), checkpoint_every=5, device=dev)
+                       store=timed_store(), checkpoint_every=5, mesh=mesh,
+                       device=dev)
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3303,8 +3335,12 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int) -> tuple:
         tr2.run(20, log_every=100)
         torch.cuda.synchronize()
     launches = ops.launch_counts()
-    differ = leaves_equal_bits(torch, tr1.params, tr2.params)         + leaves_equal_bits(torch, tr1.opt_state, tr2.opt_state)
+    differ = leaves_equal_bits(torch, full_tree(tr1.params),
+                               full_tree(tr2.params)) \
+        + leaves_equal_bits(torch, full_tree(tr1.opt_state),
+                            full_tree(tr2.opt_state))
     out = dict(part="c_crash_resume", model=cfg.name, seq_len=32,
+               mesh=list(mesh) if mesh else None,
                global_batch=4, checkpoint_every=5, failed_at=failed_at,
                resumed_at=resumed,
                restored_step_leaf=[list(step_leaf.shape),
@@ -3361,8 +3397,273 @@ def train_phase(torch, ops, bloom, merge, dev, seed: int,
     return out
 
 
+MESH_SLOWDOWN_LIMIT = 1.10     # a (1, 1) mesh against no mesh, p50
+
+
+def decode_in_turns(torch, engines: dict, prompt, steps: int = 32) -> dict:
+    """Each engine's decode step times (ms), the engines stepping in turns
+    (which goes first alternates) from their own prefill of a wave of
+    ``prompt``: a slow spell of the shared host lands on every engine
+    alike, as it cannot on waves served one after the other."""
+    state = {}
+    for name, e in engines.items():
+        tokens = torch.from_numpy(np.stack([np.asarray(prompt, np.int32)]
+                                           * e.batch)).to(e.device)
+        logits, cache = e.model.prefill(tokens, e.s_max, {})
+        state[name] = (torch.argmax(logits, -1)[:, None].to(torch.int32),
+                       cache)
+    names = list(engines)
+    out = {name: [] for name in names}
+    for i in range(steps):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            last, cache = state[name]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = engines[name].model.decode_step(last, cache)
+            last = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t) * 1e3)
+            state[name] = (last, cache)
+    return out
+
+
+def mesh_serve_part(torch, ops, dev, seed: int, keep: dict) -> tuple:
+    """(a) One warm wave of phase 7's engine (its weights and its AutumnKV
+    store, drained) through an engine on a (1, 1) mesh sharing both, then
+    through phase 7's engine, back to back: tokens, hits and the mesh
+    engine's launches.  The gate's decode p50s come from the two engines
+    stepping in turns (``decode_in_turns``).  Frees phase 7's engine."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import Sharder, make_rules
+    from repro_torch.serve import Request, ServeEngine
+    eng, shared = keep.pop("engine"), keep.pop("shared")
+    cfg, gen = eng.cfg, 16
+    quiesce(eng.kv.db)
+    t = time.perf_counter()
+    mesh = make_mesh((1, 1), dev)
+    _, rules = make_rules(cfg, mesh, "decode", eng.batch, eng.s_max)
+    meng = ServeEngine(cfg, eng.model.params, batch=eng.batch,
+                       s_max=eng.s_max, device=dev, shard=Sharder(mesh, rules),
+                       prefix_cache=eng.kv)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    reqs = [Request(shared, gen)] * eng.batch
+    runs = {}
+    ops.reset_launch_counts()
+    for name, e in (("mesh", meng), ("none", eng)):
+        hits0 = e.metrics["cache_hits"]
+        t = time.perf_counter()
+        out = np.stack(e.serve_batch(reqs))
+        wall = time.perf_counter() - t
+        tm = e.last_timings
+        runs[name] = dict(tokens=out, wall_ms=wall * 1e3,
+                          hits=e.metrics["cache_hits"] - hits0,
+                          prefill_ms=tm["prefill_s"] * 1e3,
+                          decode_step_ms=[x * 1e3 for x in
+                                          tm["decode_step_s"]],
+                          decode_step_ms_p50=nearest_rank(
+                              [x * 1e3 for x in tm["decode_step_s"]], 50))
+        if name == "mesh":
+            launches = ops.launch_counts()
+            plain = {k: v for k, v in ops.PLAIN_CALLS.items() if v}
+    wave_ratio = runs["mesh"]["decode_step_ms_p50"] \
+        / runs["none"]["decode_step_ms_p50"]
+    turns = decode_in_turns(torch, {"mesh": meng, "none": eng}, shared)
+    ratio = nearest_rank(turns["mesh"], 50) / nearest_rank(turns["none"], 50)
+    checks = {
+        "tokens_equal_meshless": np.array_equal(runs["mesh"]["tokens"],
+                                                runs["none"]["tokens"]),
+        "warm_hits_4": runs["mesh"]["hits"] == runs["none"]["hits"] == 4,
+        f"decode_p50_at_most_{MESH_SLOWDOWN_LIMIT}x": ratio
+        <= MESH_SLOWDOWN_LIMIT,
+        "k3_k4_launched": all(launches[k] > 0 for k in ATTN_KERNELS),
+        "no_plain_calls": not plain}
+    out = dict(part="a_serve", model=cfg.name, mesh={"data": 1, "model": 1},
+               rules={k: v for k, v in rules.items() if v},
+               batch=eng.batch, prompt_tokens=len(shared), gen_len=gen,
+               setup_s=setup_s,
+               **{f"{k}_{n}": v for n, r in runs.items()
+                  for k, v in r.items() if k != "tokens"},
+               wave_decode_p50_ratio=wave_ratio,
+               decode_step_ms_in_turns=turns,
+               decode_p50_ratio=ratio, launches=launches, plain_calls=plain,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               checks=checks)
+    eng.close()
+    del meng, eng
+    torch.cuda.empty_cache()
+    return out, [k for k, ok in checks.items() if not ok]
+
+
+def mesh_train_part(torch, dev, seed: int, steps: int = 3) -> tuple:
+    """(b) smollm_135m at full width on phase 9's batch (8 x 2,048) and
+    optimizer: a meshless Trainer and Trainer(mesh=(1, 1)) from the same
+    start, ``steps`` steps each in turns (host clock, device
+    synchronised): losses and every parameter and AdamW leaf by bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.sharding import full_tree
+    from repro_torch.launch.train import Trainer
+    from repro_torch.train import OptConfig
+    cfg = get_config("smollm_135m")
+    data = DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=8,
+                      seed=seed)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=15,
+                    schedule="wsd")
+    trs = {"none": Trainer(cfg, opt, data, device=dev),
+           "mesh": Trainer(cfg, opt, data, mesh=(1, 1), device=dev)}
+    losses = {k: [] for k in trs}
+    step_ms = {k: [] for k in trs}
+    for tr in trs.values():
+        tr.init(seed, try_restore=False)
+    for _ in range(steps):
+        for name, tr in trs.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = tr.train_step(tr.batch_for(tr.step))
+            tr.step += 1
+            losses[name].append(float(m["loss"]))     # synchronises
+            step_ms[name].append((time.perf_counter() - t) * 1e3)
+    differ = leaves_equal_bits(
+        torch, {"p": trs["none"].params, "o": trs["none"].opt_state},
+        full_tree({"p": trs["mesh"].params, "o": trs["mesh"].opt_state}))
+    p50 = {k: nearest_rank(v, 50) for k, v in step_ms.items()}
+    ratio = p50["mesh"] / p50["none"]
+    out = dict(part="b_train", model=cfg.name, mesh={"data": 1, "model": 1},
+               global_batch=8, seq_len=2048, steps=steps,
+               step_ms_mesh=step_ms["mesh"], step_ms_meshless=step_ms["none"],
+               step_ms_p50_mesh=p50["mesh"], step_ms_p50_meshless=p50["none"],
+               step_p50_ratio=ratio, losses_mesh=losses["mesh"],
+               losses_meshless=losses["none"], bits_equal=not differ,
+               differing=differ[:8],
+               embed_placements=str(trs["mesh"].params["embed"].placements))
+    bad = []
+    if losses["mesh"] != losses["none"] or differ:
+        bad.append(f"mesh (1, 1) training differs: {differ[:8]}")
+    if not ratio <= MESH_SLOWDOWN_LIMIT:
+        bad.append(f"mesh step p50 {ratio:.3f}x the meshless step")
+    del trs
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def mesh_merge_part(torch, attention, dev, seed: int) -> tuple:
+    """(d) Split decode attention across ranks on the card: phase 3's K3
+    shape in bf16 (B 4, H 32, KH 8, dh 128, 16 pages of 64, lengths
+    513..528), each row's pages cut in two halves as two ranks of a
+    sequence-split cache hold them; K3's partials entry on each half and
+    the ranks' merge (``attention.merge_across``), against the same
+    entry over every page merged on one rank (float32, within 1.2e-4) and
+    against one K3 call (its bf16 output, within one bf16 ulp of it: the
+    rounding of two float32 results); the same bits twice.  Times (CUDA
+    events, eager and as CUDA-graph replays): one rank's work (the split
+    pass on its half and its merge, given the all-reduced statistics; the
+    all-reduces themselves not timed) beside one K3 call over every page,
+    and the two ranks' work emulated in one process (``merge_across``'s
+    three passes)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    B, H, KH, dh, page, P = 4, 32, 8, 128, 64, 16
+    dt = torch.bfloat16
+    q = torch.randn(B, H, dh, generator=g, device=dev).to(dt)
+    kp = torch.randn(B * P, page, KH, dh, generator=g, device=dev).to(dt)
+    vp = torch.randn(B * P, page, KH, dh, generator=g, device=dev).to(dt)
+    bt = torch.randperm(B * P, generator=g, device=dev).to(
+        torch.int32).view(B, P)
+    lens = torch.randint(513, 529, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    half = P // 2 * page
+    tables = [bt[:, r * P // 2:(r + 1) * P // 2].contiguous()
+              for r in (0, 1)]
+
+    def two_ranks():
+        return attention.merge_across([attention.paged_partials_cuda(
+            q, kp, vp, tables[r], torch.clamp(lens - r * half, 0, half).to(
+                torch.int32)) for r in (0, 1)])
+
+    got, again = two_ranks(), two_ranks()
+    # the all-reduced max, for one rank's work alone
+    M = torch.stack([torch.where(p[2][:, None], p[1][..., 0], -torch.inf)
+                     .amax(-1, keepdim=True) for p in (
+                         attention.paged_partials_cuda(
+                             q, kp, vp, tables[r], torch.clamp(
+                                 lens - r * half, 0, half).to(torch.int32))
+                         for r in (0, 1))]).amax(0)
+    lens0 = torch.clamp(lens, 0, half).to(torch.int32)
+
+    def one_rank_work():
+        return attention.merge_partials(
+            *attention.paged_partials_cuda(q, kp, vp, tables[0], lens0),
+            all_max=lambda t: M, all_sum=lambda t: t)
+    one_rank = attention.merge_partials(*attention.paged_partials_cuda(
+        q, kp, vp, bt, lens))
+    k3 = attention.paged_cuda(q, kp, vp, bt, lens).float()
+    ulp = torch.exp2(torch.floor(torch.log2(k3.abs().clamp_min(
+        2.0 ** -126))) - 7)
+    err_f32 = max(float((x - one_rank).abs().max()) for x in got)
+    err_k3 = max(float((x.to(dt).float() - k3).abs().max()) for x in got)
+    over_ulp = sum(int(((x.to(dt).float() - k3).abs() > ulp).sum())
+                   for x in got)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    out = dict(part="d_split_decode", shape=f"B{B} H{H} KH{KH} dh{dh} "
+               f"page{page} P{P} lengths {lens.tolist()} bfloat16",
+               ranks=2, pages_per_rank=P // 2,
+               max_abs_err_vs_one_rank_f32=err_f32,
+               max_abs_err_vs_k3_bf16=err_k3,
+               elements_past_one_ulp_of_k3=over_ulp, same_bits_twice=same,
+               ms_one_rank=time_ms(torch, one_rank_work, 20, graph=True),
+               eager_ms_one_rank=time_ms(torch, one_rank_work, 20),
+               ms_k3=time_ms(torch, lambda: attention.paged_cuda(
+                   q, kp, vp, bt, lens), 20, graph=True),
+               eager_ms_k3=time_ms(torch, lambda: attention.paged_cuda(
+                   q, kp, vp, bt, lens), 20),
+               eager_ms_two_ranks_emulated=time_ms(torch, two_ranks, 20))
+    bad = []
+    if not err_f32 <= 1.2e-4 or over_ulp or not same:
+        bad.append(f"split decode merge: {err_f32} vs one rank, "
+                   f"{over_ulp} elements past one ulp of K3, "
+                   f"same bits twice {same}")
+    return out, bad
+
+
+def mesh_phase(torch, ops, bloom, merge, attention, dev, seed: int,
+               served=None) -> dict:
+    """Phase 10: the serving and training paths on a (1, 1) mesh of the
+    card against the same paths without one.  ``served``: part (a), run
+    at the end of phase 7 on its engine (alone, phase 7 runs here)."""
+    t = time.perf_counter()
+    if served is None:
+        keep = {}
+        serve_phase(torch, ops, dev, seed, keep)
+        served = mesh_serve_part(torch, ops, dev, seed, keep)
+    a, bad_a = served
+    emit({"phase": "mesh", **a})
+    ops.reset_launch_counts()
+    c, bad_c = train_resume_part(torch, ops, bloom, merge, dev, seed,
+                                 mesh=(1, 1))
+    emit({"phase": "mesh", **c, "part": "c_crash_resume_mesh"})
+    launches = {k: a["launches"][k] + c["launches"].get(k, 0)
+                for k in a["launches"]}
+    plain = {k: v for k, v in ops.PLAIN_CALLS.items() if v}
+    b, bad_b = mesh_train_part(torch, dev, seed)
+    emit({"phase": "mesh", **b})
+    d, bad_d = mesh_merge_part(torch, attention, dev, seed)
+    emit({"phase": "mesh", **d})
+    out = dict(phase="mesh", part="summary", s=time.perf_counter() - t,
+               launches=launches, plain_calls=plain)
+    emit(out)
+    bad = bad_a + bad_b + bad_c + bad_d
+    if plain:
+        bad.append(f"plain versions ran on the mesh's path: {plain}")
+    idle = [k for k in KERNELS if launches[k] == 0]
+    if idle:
+        bad.append(f"kernels not launched on the mesh's path: {idle}")
+    if bad:
+        raise AssertionError(f"mesh phase failed: {bad}")
+    return out
+
+
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
-          "durability", "sharded", "serve", "families", "train")
+          "durability", "sharded", "serve", "families", "train", "mesh")
 
 
 def main() -> int:
@@ -3470,8 +3771,13 @@ def main() -> int:
                                 args.entries, phase5_reads, phase6)
         by_path["sharded"] = phase6b["launches"]
         torch.cuda.empty_cache()
+    served = None
     if "serve" in phases:
-        serve = serve_phase(torch, ops, dev, args.seed)
+        keep = {} if "mesh" in phases else None
+        serve = serve_phase(torch, ops, dev, args.seed, keep)
+        if keep:
+            # phase 10 (a) on phase 7's engine, before it is freed
+            served = mesh_serve_part(torch, ops, dev, args.seed, keep)
         serve_equivalence(torch, dev, args.seed)
         by_path["serve"] = serve["launches"]
         # launches: the store kernels on phase 5, attention on the serve
@@ -3484,7 +3790,12 @@ def main() -> int:
     if "train" in phases:
         by_path["train"] = train_phase(torch, ops, bloom, merge, dev,
                                        args.seed, phase6b)["launches"]
+    if "mesh" in phases:
+        by_path["mesh"] = mesh_phase(torch, ops, bloom, merge, attention, dev,
+                                     args.seed, served)["launches"]
     if list(phases) != list(PHASES):
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
         emit({"phase": "done", "s": time.perf_counter() - t_start})
         print(smi, flush=True)
         emit({"partial": True, "phases": phases})
@@ -3502,6 +3813,8 @@ def main() -> int:
     emit({"kernels": kernels})
     emit({"phase": "done", "s": time.perf_counter() - t_start})
     print(smi, flush=True)
+    if torch.distributed.is_initialized():    # phase 10's one-rank group
+        torch.distributed.destroy_process_group()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                      "count": torch.cuda.device_count()}})
     return 0

@@ -990,7 +990,7 @@ int launch_paged(const void* q, const void* kp, const void* vp,
           dh, page, P, pps, splits, 1.f / sqrtf(static_cast<float>(dh)),
           vec16);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || out == nullptr) return static_cast<int>(err);
   const int combine_threads = ((dh > 32 ? dh : 32) + 31) / 32 * 32;
   paged_attention_combine_kernel<T>
       <<<dim3(H, B), combine_threads, sizeof(float) * 2 * splits, stream>>>(
@@ -1034,6 +1034,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // q: (B, H, dh); k_pages, v_pages: (n_phys, page, KH, dh);
 // block_tables: (B, P) int32; lengths: (B,) int32; out: (B, H, dh);
 // scratch part_acc: (B, H, splits, dh) f32, part_ml: (B, H, splits, 2) f32.
+// out == nullptr runs the split pass alone and leaves each live split's
+// (acc, m, l) in the part buffers, for a merge across ranks.
 // page <= 128; H / KH <= 32; (H / KH) * ceil(dh * size / 16) <= 1024;
 // splits * pps >= P.
 int paged_attention_launch(const void* q, const void* k_pages,

@@ -18,6 +18,13 @@ kernel launches, the split pass and the combine, counted once).
 :func:`paged_splits` sizes the paged kernel's grid, and
 :func:`paged_split_plain` repeats that kernel's split-and-combine
 arithmetic for the tests; no path calls it.
+
+Flash-decoding across ranks (a decode cache whose sequence the mesh
+splits): :func:`paged_partials_cuda` runs the paged kernel's split pass
+alone and returns each split's softmax statistics ``(acc, ml, live)``
+before the combine, :func:`paged_partials_plain` is its plain version,
+and :func:`merge_partials` merges them, across the ranks where it is
+given their all-reduces, in the combine kernel's order of operations.
 """
 from __future__ import annotations
 
@@ -100,14 +107,17 @@ def paged_splits(KH: int, P: int, page: int, n_sm: int) -> Tuple[int, int]:
     return -(-P // pps), pps
 
 
-def paged_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                      v_pages: torch.Tensor, block_tables: torch.Tensor,
-                      lengths: torch.Tensor, pps: int) -> torch.Tensor:
-    """The paged kernel's arithmetic in plain PyTorch, for the tests: per
-    split of ``pps`` pages, (m, l, acc) of a softmax over the split's live
-    positions (below ``ceil(length / page)`` pages, or all P at length 0),
-    then the live splits merged in increasing order."""
+def paged_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_tables: torch.Tensor,
+                         lengths: torch.Tensor, pps: int = 0):
+    """The paged kernel's split pass in plain PyTorch: per split of ``pps``
+    pages (every page in one split by default), (m, l, acc) of a softmax
+    over the split's live positions (below ``ceil(length / page)`` pages,
+    or all P at length 0).  Returns the kernel's part buffers ``acc`` (B,
+    H, splits, dh) and ``ml`` (B, H, splits, 2), float32, and ``live`` (B,
+    splits): which splits hold a position the kernel reads."""
     B, H, dh = q.shape
+    pps = pps or block_tables.shape[1]
     _, page, KH, _ = k_pages.shape
     G = H // KH
     P = block_tables.shape[1]
@@ -133,13 +143,66 @@ def paged_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
     l = p.sum(-1)
     acc = torch.einsum("bkgcn,bcnkd->bkgcd", p,
                        v.reshape(B, splits, pps * page, KH, dh))
-    live = (torch.arange(splits, device=q.device)[None] * pps
-            < n_pages[:, None])[:, None, None]       # (B, 1, 1, splits)
-    M = torch.where(live, m, -torch.inf).amax(-1, keepdim=True)
-    w = torch.where(live, torch.exp(m - M), 0.0)
-    out = (w[..., None] * acc).sum(-2) \
-        / (w * l).sum(-1).clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, dh).to(q.dtype)
+    live = torch.arange(splits, device=q.device)[None] * pps \
+        < n_pages[:, None]                           # (B, splits)
+    return (acc.reshape(B, H, splits, dh),
+            torch.stack([m, l], -1).reshape(B, H, splits, 2), live)
+
+
+def merge_partials(acc: torch.Tensor, ml: torch.Tensor, live: torch.Tensor,
+                   all_max=None, all_sum=None) -> torch.Tensor:
+    """Attention output (B, H, dh) float32 from split partials ``(acc, ml,
+    live)`` as :func:`paged_partials_plain` returns them: the largest live
+    ``m`` (``all_max`` then takes it over the ranks), each live split
+    weighted by ``w = exp(m - M)``, the sums of ``w l`` and ``w acc``
+    (``all_sum`` then sums them over the ranks, in one all-reduce), and
+    their quotient, the normaliser floored at 1e-30: the combine kernel's
+    order of operations."""
+    lv = live[:, None]                               # (B, 1, splits)
+    m = torch.where(lv, ml[..., 0], -torch.inf)
+    M = m.amax(-1, keepdim=True)
+    if all_max is not None:
+        M = all_max(M)
+    w = torch.where(lv, torch.exp(ml[..., 0] - M), 0.0)
+    A = (w[..., None] * torch.where(lv[..., None], acc, 0.0)).sum(-2)
+    L = (w * torch.where(lv, ml[..., 1], 0.0)).sum(-1)
+    if all_sum is not None:
+        AL = all_sum(torch.cat([A, L[..., None]], -1))
+        A, L = AL[..., :-1], AL[..., -1]
+    return A / L.clamp_min(1e-30)[..., None]
+
+
+def merge_across(parts: list) -> list:
+    """Every rank's :func:`merge_partials` output, where one process holds
+    the partials of every rank (``parts[r] = (acc, ml, live)``): each
+    all-reduce is done over the list, the sums in rank order."""
+    got: list = []
+
+    def keep(t):
+        got.append(t)
+        return t
+
+    for p in parts:
+        merge_partials(*p, all_max=keep)
+    M = torch.stack(got).amax(0)
+    got.clear()
+    for p in parts:
+        merge_partials(*p, all_max=lambda t: M, all_sum=keep)
+    S = got[0]
+    for t in got[1:]:
+        S = S + t
+    return [merge_partials(*p, all_max=lambda t: M, all_sum=lambda t: S)
+            for p in parts]
+
+
+def paged_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, block_tables: torch.Tensor,
+                      lengths: torch.Tensor, pps: int) -> torch.Tensor:
+    """The paged kernel's arithmetic in plain PyTorch, for the tests: the
+    split pass of :func:`paged_partials_plain`, then the live splits
+    merged in increasing order (:func:`merge_partials`)."""
+    return merge_partials(*paged_partials_plain(
+        q, k_pages, v_pages, block_tables, lengths, pps)).to(q.dtype)
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -198,6 +261,21 @@ def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     """:func:`paged_plain` on the card (``paged_attention_launch``: the
     split pass over a :func:`paged_splits` grid, then the combine).  Reads
     block-table entries only for pages below ``ceil(length / page)``."""
+    return _paged_launch(q, k_pages, v_pages, block_tables, lengths, True)
+
+
+def paged_partials_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor):
+    """:func:`paged_partials_plain` on the card: the paged kernel's split
+    pass alone (over its :func:`paged_splits` grid), its part buffers
+    ``(acc, ml)`` and the live splits.  Buffers of splits that are not
+    live hold no value."""
+    return _paged_launch(q, k_pages, v_pages, block_tables, lengths, False)
+
+
+def _paged_launch(q, k_pages, v_pages, block_tables, lengths,
+                  combine: bool):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention: unsupported dtype {q.dtype}")
     _check("paged_attention", q.device, q.dtype, q=q, k_pages=k_pages,
@@ -224,23 +302,30 @@ def paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          f"16-byte chunks of a head ({dh} x {q.dtype}) "
                          f"exceeds the {PAGED_MAX_PAIRS} outputs one block "
                          f"holds")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
     splits, pps = paged_splits(KH, P, page, _sm_count(q.device.index or 0))
+    out = torch.empty_like(q) if combine else None
     part_acc = torch.empty((B, H, splits, dh), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32,
                           device=q.device)
-    lib = _build.load("attention")
-    with torch.cuda.device(q.device):
-        rc = lib.paged_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), out.data_ptr(), B, H, KH, dh, page, P, pps,
-            splits, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check("attention", rc, "paged_attention")
-    with _build.COUNT_LOCK:
-        LAUNCHES["paged_attention"] += 1
-    return out
+    if B > 0:
+        lib = _build.load("attention")
+        with torch.cuda.device(q.device):
+            rc = lib.paged_attention_launch(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(),
+                part_acc.data_ptr(), part_ml.data_ptr(),
+                out.data_ptr() if combine else None, B, H, KH, dh, page, P,
+                pps, splits, _DTYPE_CODE[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _build.check("attention", rc, "paged_attention")
+        with _build.COUNT_LOCK:
+            LAUNCHES["paged_attention"] += 1
+    if combine:
+        return out
+    ln = lengths.long()
+    n_pages = torch.where(ln > 0, torch.clamp((ln + page - 1) // page,
+                                              max=P), P)
+    live = torch.arange(splits, device=q.device)[None] * pps \
+        < n_pages[:, None]
+    return part_acc, part_ml, live

@@ -147,3 +147,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                      lengths)
     return _attention.paged_plain(q, k_pages, v_pages, block_tables,
                                   lengths)
+
+
+def paged_attention_partials(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             lengths: torch.Tensor):
+    """The paged attention's split softmax statistics ``(acc, ml, live)``
+    before the combine, for a merge across ranks
+    (``attention.merge_partials``)."""
+    if _route(q, "paged_attention"):
+        return _attention.paged_partials_cuda(q, k_pages, v_pages,
+                                              block_tables, lengths)
+    return _attention.paged_partials_plain(q, k_pages, v_pages, block_tables,
+                                           lengths)

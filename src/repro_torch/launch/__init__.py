@@ -1,2 +1,3 @@
-"""Launchers: the trainer (the mesh and dry-run layer is ROADMAP
-A16)."""
+"""Launchers: device meshes and the sharding rules (``mesh``,
+``sharding``) and the trainer (``train``); the dry-run layer is ROADMAP
+A16b."""

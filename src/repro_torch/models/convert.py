@@ -4,7 +4,8 @@
 arrays (for example the reference's ``init_params`` output passed through
 ``numpy.asarray``) to torch tensors on a device, checking every leaf
 against this package's parameter table; ``params_to_numpy`` is its
-inverse.  ``opt_state_from_numpy`` does the same for an AdamW state (the
+inverse, and takes a tree placed on a mesh (``DTensor`` leaves) back to
+full arrays too.  ``opt_state_from_numpy`` does the same for an AdamW state (the
 float32 moments ``m`` and ``v``, the 0-dim int32 ``step`` and, where it
 has one, the float32 ``master`` copy), and ``cache_from_numpy`` and
 ``cache_to_numpy`` for decode caches.  Like the rest of the package,
@@ -39,7 +40,12 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """One tensor to numpy (bfloat16 as its uint16 bits)."""
+    """One tensor to numpy (bfloat16 as its uint16 bits); a ``DTensor``
+    placed on a mesh is gathered whole first, every rank of its mesh
+    taking part."""
+    if hasattr(t, "placements"):
+        from ..launch.sharding import full_tensor
+        t = full_tensor(t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)

@@ -15,7 +15,14 @@ the reference casts them.  Serving attention is in :mod:`..kernels`
 (flash for prefill, cross-attention and the encoder, paged for decode);
 training attention is :func:`gqa_attention`, the reference's own route in
 differentiable ops, and :func:`mlp_train` keeps the MoE aux loss that the
-serving :func:`mlp` drops.  There is no sharding callback.
+serving :func:`mlp` drops.
+
+``shard`` is the reference's activation callback.  The port computes on
+each rank's local tensors, so the callback does the work where a layout
+changes (``launch.sharding.Sharder``): a contraction over a split dim is
+summed (``partial``), a dim is gathered or cut (``src``), a replicated
+tensor meeting the rank's shard passes ``enter``.  :data:`identity_shard`,
+the default, is the meshless case: every call returns its input.
 
 The reference's sequential scans become loops (``ssd_scan``'s inter-chunk
 recurrence, one step per chunk) or a log-depth scan (``rglru_scan``, in
@@ -25,7 +32,7 @@ float32 additions.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +40,57 @@ import torch.nn.functional as F
 from .config import ModelConfig, torch_dtype
 
 Params = Dict[str, torch.Tensor]
+
+
+class IdentityShard:
+    """The meshless ``shard`` callback (the reference's ``_IdentityShard``):
+    one rank holds every tensor whole, so no layout ever changes and every
+    method returns its input.  ``launch.sharding.Sharder`` is the mesh's."""
+
+    mesh = None
+    token_shards = 1
+
+    def __call__(self, x: torch.Tensor, *logical: Optional[str],
+                 src: Optional[Sequence[Optional[str]]] = None,
+                 partial: Optional[str] = None) -> torch.Tensor:
+        return x
+
+    def is_sharded(self, name: str) -> bool:
+        return False
+
+    def shards(self, name: str) -> int:
+        """How many ranks split a dim under the rule ``name``."""
+        return 1
+
+    def span(self, name: str, n: int) -> Tuple[int, int]:
+        """This rank's range of a dim of ``n`` split by the rule ``name``."""
+        return 0, n
+
+    def local_shape(self, shape: Sequence[int],
+                    logical: Sequence[Optional[str]]) -> Tuple[int, ...]:
+        """The rank's shard of a tensor of ``shape`` in layout
+        ``logical``."""
+        return tuple(shape)
+
+    def enter(self, x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+        return x
+
+    def max(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return x
+
+    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def param(self, leaf: torch.Tensor, logical: tuple) -> torch.Tensor:
+        return leaf
+
+    def param_grad(self, g: torch.Tensor, leaf, logical: tuple
+                   ) -> torch.Tensor:
+        return g
+
+
+identity_shard = IdentityShard()
+Shard = IdentityShard
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -98,7 +156,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: Optional[int],
                   k_len: Optional[torch.Tensor] = None,
                   q_chunk: int = 1024,
-                  scores_dtype: str = "float32") -> torch.Tensor:
+                  scores_dtype: str = "float32",
+                  shard: Shard = identity_shard,
+                  kv_layout: str = "seq") -> torch.Tensor:
     """The reference's training attention (``repro.models.layers``
     ``gqa_attention``) in differentiable torch ops: the repeat-KV form,
     scores in ``scores_dtype``, the softmax max held out of the gradient,
@@ -106,10 +166,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     queries in ``q_chunk`` blocks, and the grouped route for one query.
 
     q: (B, Sq, H, dh), k/v: (B, Sk, KH, dh), H = G KH; output in q's dtype.
+    ``kv_layout`` names the keys' sequence dim (``"seq"`` for
+    self-attention, ``"enc_seq"`` for an encoder's keys): under sequence
+    parallelism each rank's queries read every key, gathered here with
+    their positions.
     This is the reference's own route for training: its training path
     reaches no Pallas kernel, and neither package's flash kernel has a
     backward, so serving's ``ops.flash_attention`` is not used here.
     """
+    kv_src = ("batch", kv_layout, None, "head_dim")
+    k = shard(k, "batch", "att_kv_seq", None, "head_dim", src=kv_src)
+    v = shard(v, "batch", "att_kv_seq", None, "head_dim", src=kv_src)
+    k_positions = shard(k_positions, None, "att_kv_seq",
+                        src=(None, kv_layout))
     B, Sq, H, dh = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -157,28 +226,51 @@ def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attn_project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor
+                     positions: torch.Tensor, shard: Shard = identity_shard
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention q, k, v with qk_norm and rope at ``positions``."""
-    q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
+    """Self-attention q, k, v with qk_norm and rope at ``positions``: the
+    rank's query heads and KV heads (the weights' shards)."""
+    xq, xk = shard.enter(x, "heads"), shard.enter(x, "kv_heads")
+    q, k, v = proj(xq, p["wq"]), proj(xk, p["wk"]), proj(xk, p["wv"])
     if cfg.qk_norm and "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, shard.enter(p["q_norm"], "heads"), cfg.norm_eps)
+        k = rms_norm(k, shard.enter(p["k_norm"], "kv_heads"), cfg.norm_eps)
     return rope(q, positions, cfg.rope_theta), \
         rope(k, positions, cfg.rope_theta), v
 
 
-def attn_output(p: Params, ctx: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+def heads_kv(k: torch.Tensor, v: torch.Tensor, n_q: int,
+             shard: Shard = identity_shard
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads that the rank's query heads read: ``k``, ``v`` as they
+    are unless the rules split the query heads and not the KV heads (the
+    reference repeats KV to every query head and splits that), where each
+    rank keeps the KV heads of its query heads."""
+    if shard.shards("heads") == 1 or shard.shards("kv_heads") > 1:
+        return k, v
+    G = n_q // k.shape[2]
+    h0, h1 = shard.span("heads", n_q)
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    return shard.enter(k, "heads")[:, :, k0:k1], \
+        shard.enter(v, "heads")[:, :, k0:k1]
+
+
+def attn_output(p: Params, ctx: torch.Tensor,
+                shard: Shard = identity_shard) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd"), summed over the ranks' heads."""
     h, k, d = p["wo"].shape
-    return ctx.flatten(-2) @ p["wo"].reshape(h * k, d)
+    return shard(ctx.flatten(-2) @ p["wo"].reshape(h * k, d),
+                 "batch", "seq", "embed", partial="heads")
 
 
 # -------------------------------------------------------------------- mlps
-def dense_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def dense_mlp(p: Params, x: torch.Tensor,
+              shard: Shard = identity_shard) -> torch.Tensor:
+    x = shard.enter(x, "mlp")
     h = x @ p["wg"]
     u = x @ p["wu"]
-    return (F.silu(h) * u) @ p["wd"]
+    return shard((F.silu(h) * u) @ p["wd"], "batch", "seq", "embed",
+                 partial="mlp")
 
 
 def moe_capacity(S: int, cfg: ModelConfig) -> int:
@@ -207,7 +299,8 @@ def moe_dispatch(top_ids: torch.Tensor, E: int, C: int):
     return order, slot, keep
 
 
-def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            shard: Shard = identity_shard
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based token-choice top-k MoE (drop on capacity, per sequence)
     and the Switch load-balancing aux loss, as the reference computes them.
@@ -220,12 +313,19 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
     outputs are summed one after another in increasing expert id, the
     order in which the reference's ``.at[tok].add`` visits them; there is
     no float atomic, so the same inputs give the same bits.
+
+    On a mesh the routing runs on every rank of the model axis over the
+    whole sequence (capacity is per sequence); each rank runs its experts
+    (EP) or its shard of every expert's hidden dim, and the outputs of all
+    experts meet before the un-sort.
     """
     m = cfg.moe
+    x = shard(x, "batch", None, "embed", src=("batch", "seq", "embed"))
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     C = moe_capacity(S, cfg)
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    router = shard(p["router"], "embed", None, src=("embed", "expert"))
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
     top_w, top_ids = torch.topk(probs, K, dim=-1)     # (B, S, K)
     top_w = top_w / top_w.sum(-1, keepdim=True)
     dispatch_frac = F.one_hot(top_ids, E).float().mean(dim=(1, 2))
@@ -242,9 +342,15 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
     rows = torch.where(keep, rows, B * E * C)
     buf.index_copy_(0, rows.reshape(-1), xg.reshape(-1, D))
     buf = buf[:-1].view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    # the rank's experts (EP), or its shard of every expert's hidden dim
+    inner = None if shard.shards("expert") > 1 else "mlp"
+    e0, e1 = shard.span("expert", E)
+    buf = shard.enter(shard.enter(buf, "expert"), inner)[e0:e1]
     h = torch.bmm(buf, p["wg"])
     u = torch.bmm(buf, p["wu"])
     y = torch.bmm(F.silu(h) * u, p["wd"])             # (E, B * C, D)
+    y = shard(y, "expert", None, "embed", partial=inner)
+    y = shard(y, None, None, "embed", src=("expert", None, "embed"))
     y = y.view(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
     yg = torch.gather(y, 1, slot[..., None].expand(B, S * K, D))
     yg = yg * keep.to(x.dtype)[..., None] * sw.to(x.dtype)[..., None]
@@ -256,27 +362,30 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
     out = yk[:, :, 0]
     for j in range(1, K):
         out = out + yk[:, :, j]
-    return out, aux
+    return shard(out, "batch", "seq", "embed",
+                 src=("batch", None, "embed")), aux
 
 
-def mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig
+def mlp_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              shard: Shard = identity_shard
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's MLP output and its load-balancing aux loss (0 for a
     dense MLP or none), as the reference's ``mlp`` returns them."""
     if not p:
         return torch.zeros_like(x), x.new_zeros((), dtype=torch.float32)
     if cfg.moe is not None and "router" in p:
-        return moe_mlp(p, x, cfg)
-    return dense_mlp(p, x), x.new_zeros((), dtype=torch.float32)
+        return moe_mlp(p, x, cfg, shard)
+    return dense_mlp(p, x, shard), x.new_zeros((), dtype=torch.float32)
 
 
-def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        shard: Shard = identity_shard) -> torch.Tensor:
     """The block's MLP output (an empty ``p`` stands for none: zeros)."""
     if not p:
         return torch.zeros_like(x)
     if cfg.moe is not None and "router" in p:
-        return moe_mlp(p, x, cfg)[0]
-    return dense_mlp(p, x)
+        return moe_mlp(p, x, cfg, shard)[0]
+    return dense_mlp(p, x, shard)
 
 
 # ------------------------------------------------------- causal conv (SSM)

@@ -16,6 +16,12 @@ layers axis per stage:
 ``pos`` is a 0-dim int32 tensor on the device, never read back by a step.
 Unlike the reference's pure functions, ``decode_step`` updates the cache in
 place and returns it.
+
+On a mesh (``shard`` a ``launch.sharding.Sharder`` with the decode rules,
+which the reference's engine also passes to prefill and decode alike) the
+model keeps each rank's shard of every weight and cache: ``prefill`` and
+``decode_step`` take and return the whole batch (the rank computes its
+rows of it) while the cache stays the rank's.
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ from ..core.engine import resolve_device
 from ..kernels import ops
 from . import blocks
 from .config import ModelConfig, find_stages, torch_dtype
-from .layers import attn_output, mlp, proj, rms_norm
-from .params import ParamSpec, param_table, tree_leaves, tree_map
+from .layers import (Shard, attn_output, identity_shard, mlp, proj,
+                     rms_norm)
+from .params import (ParamSpec, logical_specs, param_table, tree_leaves,
+                     tree_map)
 
 Pytree = Any
 NEG_LOGIT = -1e30
@@ -105,11 +113,14 @@ def _is_cache_spec(x) -> bool:
     return isinstance(x, CacheSpec)
 
 
-def init_cache(cfg: ModelConfig, B: int, s_max: int, device=None) -> Pytree:
-    """A zeroed decode cache on ``device`` (``cuda:0`` unless ``"cpu"``)."""
+def init_cache(cfg: ModelConfig, B: int, s_max: int, device=None,
+               shard: Shard = identity_shard) -> Pytree:
+    """A zeroed decode cache on ``device`` (``cuda:0`` unless ``"cpu"``):
+    on a mesh, the rank's shard of it."""
     device = resolve_device(device)
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                          device=device),
+    return tree_map(lambda s: torch.zeros(shard.local_shape(s.shape,
+                                                            s.logical),
+                                          dtype=s.dtype, device=device),
                     cache_table(cfg, B, s_max), is_leaf=_is_cache_spec)
 
 
@@ -126,6 +137,30 @@ def sinusoid_positions(T: int, D: int, device=None) -> torch.Tensor:
     ang = torch.arange(T, dtype=torch.float32, device=device)[:, None] \
         * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :D]
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, n_vocab: int,
+                 shard: Shard = identity_shard) -> torch.Tensor:
+    """Rows of the embedding ``table`` (the rank's vocab rows on a mesh:
+    each token is looked up by the rank that holds it, the others add
+    zeros)."""
+    v0, v1 = shard.span("vocab", n_vocab)
+    if v1 - v0 == n_vocab:
+        return table[tokens.long()]
+    t = tokens.long() - v0
+    mine = ((t >= 0) & (t < v1 - v0))[..., None]
+    x = torch.where(mine, table[t.clamp(0, v1 - v0 - 1)], 0)
+    return shard(x, "batch", "seq", "embed", partial="vocab")
+
+
+def vocab_logits(x: torch.Tensor, table: torch.Tensor, tied: bool,
+                 cfg: ModelConfig, shard: Shard = identity_shard
+                 ) -> torch.Tensor:
+    """Logits over the whole padded vocab from the final-normed ``x``
+    (the rank's vocab columns gathered)."""
+    x = shard.enter(x, "vocab")
+    logits = x @ table.t() if tied else x @ table
+    return shard(logits, "batch", "seq", None, src=("batch", "seq", "vocab"))
 
 
 def _compute_copy(table: Pytree, params: Pytree, cd: torch.dtype,
@@ -148,17 +183,26 @@ class Model(nn.Module):
 
     ``params`` is the reference-layout tree of ``cfg.param_dtype`` tensors
     (from :func:`.params.init_params` or :func:`.convert.params_from_numpy`),
-    all on one device; the module registers each leaf as a frozen
-    parameter.  Matrices are also kept once in ``cfg.compute_dtype`` (the
+    all on one device, or their ``DTensor`` placements on ``shard``'s mesh;
+    the module keeps the rank's shard of each leaf that ``shard`` computes
+    with, and registers each as a frozen parameter.  Matrices are also kept once in ``cfg.compute_dtype`` (the
     same tensor when the two dtypes agree), which rounds exactly as the
     reference's per-einsum ``.astype``; vectors, the router and the conv
     taps stay in the parameter dtype and are cast where the reference
     casts them.
     """
 
-    def __init__(self, cfg: ModelConfig, params: Pytree):
+    def __init__(self, cfg: ModelConfig, params: Pytree,
+                 shard: Shard = identity_shard):
         super().__init__()
+        if shard.shards("seq") > 1 or (shard.shards("heads") > 1
+                                       and shard.shards("kv_heads") == 1):
+            raise ValueError("serving takes the decode rules "
+                             "(make_rules(cfg, mesh, 'decode', ...)): one "
+                             "cache layout for prefill and decode")
         self.cfg = cfg
+        self.shard = shard
+        params = tree_map(shard.param, params, logical_specs(cfg))
         self.params = params
         for path, leaf in tree_leaves(params):   # e.g. stages_0_blocks_0_wq
             self.register_parameter(re.sub(r"\W+", "_", path).strip("_"),
@@ -186,40 +230,53 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ embedding
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.compute["embed"][tokens.long()]
+        return vocab_lookup(self.compute["embed"], tokens,
+                            self.cfg.vocab_padded, self.shard)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.compute["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = x @ self.compute["embed"].t()
-        else:
-            logits = x @ self.compute["lm_head"]
+        tied = cfg.tie_embeddings
+        logits = vocab_logits(x, self.compute["embed" if tied else "lm_head"],
+                              tied, cfg, self.shard)
         if cfg.vocab_padded != cfg.vocab:  # mask the padding out of argmax
             logits[..., cfg.vocab:] = NEG_LOGIT
         return logits
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a whole batch."""
+        return self.shard(t, "batch", *(None,) * (t.dim() - 1),
+                          src=(None,) * t.dim())
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch from every rank's rows."""
+        return self.shard(t, *(None,) * t.dim(),
+                          src=("batch",) + (None,) * (t.dim() - 1))
 
     def encoder_forward(self, frames: torch.Tensor) -> torch.Tensor:
         """Whisper-style bidirectional encoder over (stubbed) frame
         embeddings (B, T, D): every layer's attention non-causal through
         ``flash_attention``."""
-        cfg = self.cfg
+        cfg, shard = self.cfg, self.shard
         x = frames.to(torch_dtype(cfg.compute_dtype))
         x = x + sinusoid_positions(x.shape[1], cfg.d_model,
                                    x.device).to(x.dtype)
         for p in self.encoder_layers:
             h = rms_norm(x, p["ln"], cfg.norm_eps)
-            o = ops.flash_attention(proj(h, p["wq"]).contiguous(),
-                                    proj(h, p["wk"]).contiguous(),
-                                    proj(h, p["wv"]).contiguous(),
+            hq, hk = shard.enter(h, "heads"), shard.enter(h, "kv_heads")
+            o = ops.flash_attention(proj(hq, p["wq"]).contiguous(),
+                                    proj(hk, p["wk"]).contiguous(),
+                                    proj(hk, p["wv"]).contiguous(),
                                     causal=False)
-            x = x + attn_output(p, o)
-            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+            x = x + attn_output(p, o, shard)
+            x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                        shard)
         return rms_norm(x, self.compute["encoder"]["final_norm"],
                         cfg.norm_eps)
 
     def init_cache(self, B: int, s_max: int) -> Pytree:
-        return init_cache(self.cfg, B, s_max, self.device)
+        """The rank's shard of a zeroed cache of ``B`` rows."""
+        return init_cache(self.cfg, B, s_max, self.device, self.shard)
 
     @staticmethod
     def _layer_cache(cache: Pytree, si: int, j: int, i: int):
@@ -236,7 +293,9 @@ class Model(nn.Module):
         ``enc_frames`` (B, T, D) for an encoder, ``img_embeds`` (B, T, D)
         for cross-attention image layers."""
         cfg = self.cfg
-        extras = extras or {}
+        extras = {k: self._rows(v) for k, v in (extras or {}).items()}
+        cache = self.init_cache(tokens.shape[0], s_max)
+        tokens = self._rows(tokens)
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
         ctx: Dict[str, Any] = {"positions": torch.arange(
@@ -245,13 +304,12 @@ class Model(nn.Module):
             ctx["enc_out"] = self.encoder_forward(extras["enc_frames"])
         if cfg.vision is not None:
             ctx["img_embeds"] = extras["img_embeds"].to(x.dtype)
-        cache = self.init_cache(B, s_max)
         for kind, si, j, i, lp in self.layers:
             x = blocks.PREFILL[kind](kind, lp, x,
                                      self._layer_cache(cache, si, j, i), ctx,
-                                     cfg)
+                                     cfg, self.shard)
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
-        return self.unembed(x[:, -1:])[:, 0], cache
+        return self._all_rows(self.unembed(x[:, -1:])[:, 0]), cache
 
     def _block_table(self, B: int, s_cache: int) -> torch.Tensor:
         """The identity block table of the decode view (cached)."""
@@ -269,6 +327,7 @@ class Model(nn.Module):
         place; returns the logits (B, vocab_padded) and the cache with
         ``pos`` advanced."""
         pos = cache["pos"]
+        tokens = self._rows(tokens)
         B = tokens.shape[0]
         x = self.embed_tokens(tokens)
         tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -276,12 +335,17 @@ class Model(nn.Module):
         for kind, si, j, i, lp in self.layers:
             lc = self._layer_cache(cache, si, j, i)
             if kind in blocks.SELF_ATTN_KINDS:
-                s_cache = lc["k"].shape[1]   # a block table per ring extent
-                if s_cache not in tables:
-                    lengths = torch.clamp(pos + 1, max=s_cache).to(
-                        torch.int32).expand(B).contiguous()
-                    tables[s_cache] = (self._block_table(B, s_cache),
-                                       lengths)
-            x = blocks.DECODE[kind](kind, lp, lc, x, ctx, self.cfg)
+                s_local = lc["k"].shape[1]   # a block table per ring extent
+                if s_local not in tables:
+                    s_cache = s_local * self.shard.shards("kv_seq")
+                    lengths = torch.clamp(pos + 1, max=s_cache)
+                    if s_local != s_cache:   # the rank's range of the ring
+                        lo = self.shard.span("kv_seq", s_cache)[0]
+                        lengths = torch.clamp(lengths - lo, 0, s_local)
+                    tables[s_local] = (self._block_table(B, s_local),
+                                       lengths.to(torch.int32).expand(
+                                           B).contiguous())
+            x = blocks.DECODE[kind](kind, lp, lc, x, ctx, self.cfg,
+                                    self.shard)
         cache["pos"] = pos + 1
-        return self.unembed(x)[:, 0], cache
+        return self._all_rows(self.unembed(x)[:, 0]), cache

@@ -272,6 +272,20 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return {p: s.shape for p, s in tree_leaves(param_table(cfg), _is_spec)}
 
 
+def abstract_params(cfg: ModelConfig) -> Pytree:
+    """The parameter tree as meta tensors of ``cfg.param_dtype``: shapes
+    and dtypes, no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"),
+                    param_table(cfg), is_leaf=_is_spec)
+
+
+def logical_specs(cfg: ModelConfig) -> Pytree:
+    """Each leaf's logical axes, in the tree's layout."""
+    return tree_map(lambda s: s.logical, param_table(cfg), is_leaf=_is_spec)
+
+
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count; with ``active_only``, MoE expert weights
     count top_k / E of their size (the parameters a token runs through)."""

@@ -21,6 +21,13 @@ in float32, as in JAX.
 ``remat``) checkpoints groups of ``_remat2_group(repeat)`` layers instead,
 as the reference's outer scan does; the vocab-chunked loss checkpoints
 each chunk.  Attention is :func:`.layers.gqa_attention`.
+
+On a mesh (``shard`` a ``launch.sharding.Sharder`` with the train rules)
+each rank computes on its rows of the batch (``batch`` over the data axes)
+and, under sequence parallelism, its range of positions; every loss term
+is summed over the ranks that split the tokens, and :func:`value_and_grad`
+takes ``DTensor`` parameters and returns each gradient in its parameter's
+placement.
 """
 from __future__ import annotations
 
@@ -32,10 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from . import blocks
 from .config import ModelConfig, find_stages, torch_dtype
-from .layers import (attn_output, gqa_attention, mlp_train, proj,
-                     rms_norm)
-from .model import NEG_LOGIT, _compute_copy, sinusoid_positions
-from .params import param_table, tree_map
+from .layers import (Shard, attn_output, gqa_attention, identity_shard,
+                     mlp_train, proj, rms_norm)
+from .model import (NEG_LOGIT, _compute_copy, sinusoid_positions,
+                    vocab_logits, vocab_lookup)
+from .params import logical_specs, param_table, tree_map
 
 Pytree = Any
 Batch = Dict[str, torch.Tensor]
@@ -74,21 +82,22 @@ def compute_view(params: Pytree, cfg: ModelConfig) -> Pytree:
 
 # ---------------------------------------------------------------- embedding
 def embed_tokens(params: Pytree, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, shard: Shard = identity_shard
+                 ) -> torch.Tensor:
     """The lookup in the parameter dtype, then the cast (the reference's
     ``jnp.take`` then ``astype``)."""
-    return params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    return vocab_lookup(params["embed"], tokens, cfg.vocab_padded,
+                        shard).to(torch_dtype(cfg.compute_dtype))
 
 
-def unembed(params: Pytree, x: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
+def unembed(params: Pytree, x: torch.Tensor, cfg: ModelConfig,
+            shard: Shard = identity_shard) -> torch.Tensor:
     """Final norm and logits (B, S, vocab_padded); the padding columns
     hold -1e30 so that they fall out of the log-sum-exp."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).t()
-    else:
-        logits = x @ params["lm_head"].to(x.dtype)
+    tied = cfg.tie_embeddings
+    logits = vocab_logits(x, params["embed" if tied else "lm_head"].to(
+        x.dtype), tied, cfg, shard)
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, NEG_LOGIT)
@@ -97,7 +106,8 @@ def unembed(params: Pytree, x: torch.Tensor, cfg: ModelConfig
 
 # ------------------------------------------------------------------ encoder
 def encoder_forward(params: Pytree, cp: Pytree, frames: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, shard: Shard = identity_shard
+                    ) -> torch.Tensor:
     """Whisper-style bidirectional encoder over (stubbed) frame embeddings
     (B, T, D), each layer rematerialised under ``remat``."""
     x = frames.to(torch_dtype(cfg.compute_dtype))
@@ -108,12 +118,15 @@ def encoder_forward(params: Pytree, cp: Pytree, frames: torch.Tensor,
 
     def body(xc, p):
         h = rms_norm(xc, p["ln"], cfg.norm_eps)
-        o = gqa_attention(proj(h, p["wq"]), proj(h, p["wk"]),
-                          proj(h, p["wv"]), q_positions=pos,
+        hq, hk = shard.enter(h, "heads"), shard.enter(h, "kv_heads")
+        o = gqa_attention(proj(hq, p["wq"]), proj(hk, p["wk"]),
+                          proj(hk, p["wv"]), q_positions=pos,
                           k_positions=pos, causal=False, window=None,
-                          q_chunk=cfg.q_chunk, scores_dtype=cfg.scores_dtype)
-        xc = xc + attn_output(p, o)
-        y, _ = mlp_train(p["mlp"], rms_norm(xc, p["ln2"], cfg.norm_eps), cfg)
+                          q_chunk=cfg.q_chunk, scores_dtype=cfg.scores_dtype,
+                          shard=shard, kv_layout="enc_seq")
+        xc = xc + attn_output(p, o, shard)
+        y, _ = mlp_train(p["mlp"], rms_norm(xc, p["ln2"], cfg.norm_eps), cfg,
+                         shard)
         return xc + y
 
     for p in _unstack(cp["encoder"]["blocks"], cfg.encoder.n_layers):
@@ -123,13 +136,14 @@ def encoder_forward(params: Pytree, cp: Pytree, frames: torch.Tensor,
 
 # ------------------------------------------------------------------- stages
 def _make_ctx_train(cfg: ModelConfig, params: Pytree, cp: Pytree,
-                    batch: Batch, S: int, B: int,
-                    device: torch.device) -> Dict[str, Any]:
+                    batch: Batch, S: int, B: int, device: torch.device,
+                    shard: Shard = identity_shard) -> Dict[str, Any]:
     pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    pos = shard(pos, "batch", "seq", src=("batch", None))
     ctx: Dict[str, Any] = {"positions": pos, "s_max": S}
     if cfg.encoder is not None:
         ctx["enc_out"] = encoder_forward(params, cp, batch["enc_frames"],
-                                         cfg)
+                                         cfg, shard)
     if cfg.vision is not None:
         ctx["img_embeds"] = batch["img_embeds"].to(
             torch_dtype(cfg.compute_dtype))
@@ -145,7 +159,8 @@ def _remat2_group(repeat: int) -> int:
 
 
 def run_stages_train(cp: Pytree, x: torch.Tensor, ctx: Dict[str, Any],
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                     cfg: ModelConfig, shard: Shard = identity_shard
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every layer over the whole sequence; returns (x, the summed aux
     loss).  The aux losses add up as the reference's scans add them: a
     super-block's in order, then the stage's stacked layers (or, under
@@ -158,7 +173,7 @@ def run_stages_train(cp: Pytree, x: torch.Tensor, ctx: Dict[str, Any],
             aux = xc.new_zeros((), dtype=torch.float32)
             for j, kind in enumerate(_st.block):
                 xc, a = blocks.TRAIN[kind](kind, lp["blocks"][j], xc, ctx,
-                                           cfg)
+                                           cfg, shard)
                 aux = aux + a
             return xc, aux
 
@@ -185,9 +200,10 @@ def run_stages_train(cp: Pytree, x: torch.Tensor, ctx: Dict[str, Any],
 
 # --------------------------------------------------------------------- loss
 def _nll_of_chunk(params: Pytree, xc: torch.Tensor, lc: torch.Tensor,
-                  mc: torch.Tensor, cfg: ModelConfig):
+                  mc: torch.Tensor, cfg: ModelConfig,
+                  shard: Shard = identity_shard):
     """(sum of masked NLL, sum of masked lse^2) over a chunk of positions."""
-    logits = unembed(params, xc, cfg).float()
+    logits = unembed(params, xc, cfg, shard).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
     nll = lse - gold
@@ -195,55 +211,77 @@ def _nll_of_chunk(params: Pytree, xc: torch.Tensor, lc: torch.Tensor,
 
 
 def loss_fn(params: Pytree, batch: Batch, cfg: ModelConfig,
-            aux_coef: float = 0.01, z_coef: float = 1e-4
+            aux_coef: float = 0.01, z_coef: float = 1e-4,
+            shard: Shard = identity_shard
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token NLL over the masked positions, plus ``aux_coef``
     times the MoE aux loss and ``z_coef`` times the z-loss (the mean
     lse^2).  ``batch``: ``tokens`` and ``labels`` (B, S), optional
     ``loss_mask`` (B, S), and the frontends' ``enc_frames`` /
     ``img_embeds`` where the model has them.  Returns (loss, {"ce", "aux",
-    "zloss", "ntokens"})."""
-    tokens, labels = batch["tokens"], batch["labels"]
-    B, S = tokens.shape
+    "zloss", "ntokens"}).  On a mesh ``batch`` holds the rank's rows."""
+    B, S = batch["tokens"].shape
+
+    def own(t):       # the rank's positions (under sequence parallelism)
+        return shard(t, "batch", "seq", src=("batch", None))
+
+    tokens, labels = own(batch["tokens"]), own(batch["labels"])
     cp = compute_view(params, cfg)
-    x = embed_tokens(params, tokens, cfg)
-    ctx = _make_ctx_train(cfg, params, cp, batch, S, B, x.device)
-    x, aux = run_stages_train(cp, x, ctx, cfg)
+    x = embed_tokens(params, tokens, cfg, shard)
+    ctx = _make_ctx_train(cfg, params, cp, batch, S, B, x.device, shard)
+    x, aux = run_stages_train(cp, x, ctx, cfg, shard)
+    S = x.shape[1]
     mask = batch.get("loss_mask")
     mask = torch.ones(B, S, dtype=torch.float32, device=x.device) \
-        if mask is None else mask.float()
-    ntok = torch.clamp(torch.sum(mask), min=1.0)
+        if mask is None else own(mask.float())
+    ntok = torch.clamp(shard.token_sum(torch.sum(mask)), min=1.0)
     # vocab-chunked loss: the (B, S, V) float32 logits never exist for the
     # whole sequence at once
     C = cfg.loss_chunk
     if S > C and S % C == 0:
         parts = [_remat(_nll_of_chunk, params, x[:, c:c + C],
-                        labels[:, c:c + C], mask[:, c:c + C], cfg)
+                        labels[:, c:c + C], mask[:, c:c + C], cfg, shard)
                  for c in range(0, S, C)]
         nll_sum = torch.stack([n for n, _ in parts]).sum()
         z_sum = torch.stack([z for _, z in parts]).sum()
     else:
-        nll_sum, z_sum = _nll_of_chunk(params, x, labels, mask, cfg)
-    ce = nll_sum / ntok
-    zloss = z_sum / ntok
+        nll_sum, z_sum = _nll_of_chunk(params, x, labels, mask, cfg, shard)
+    ce = shard.token_sum(nll_sum) / ntok
+    zloss = shard.token_sum(z_sum) / ntok
+    if shard.token_shards > 1:    # a batch mean, each rank's rows' share
+        aux = shard.token_sum(aux / shard.token_shards)
     loss = ce + aux_coef * aux + z_coef * zloss
     return loss, {"ce": ce, "aux": aux, "zloss": zloss, "ntokens": ntok}
 
 
 def value_and_grad(params: Pytree, batch: Batch, cfg: ModelConfig,
-                   **loss_kw) -> Tuple[Tuple[torch.Tensor, Dict], Pytree]:
+                   shard: Shard = identity_shard, **loss_kw
+                   ) -> Tuple[Tuple[torch.Tensor, Dict], Pytree]:
     """((loss, metrics), grads): the gradient of :func:`loss_fn` with
     respect to every leaf of ``params`` (zeros where a leaf is unused), in
-    the leaf's dtype; ``params`` itself is left as it is."""
+    the leaf's dtype; ``params`` itself is left as it is.  On a mesh every
+    leaf is a ``DTensor``: it is computed with in the layout
+    ``shard.param`` gives it, and its gradient comes back in the leaf's
+    placement."""
     leaves = []
 
-    def track(t):
-        leaves.append(t.detach().requires_grad_())
+    def track(t, logical):
+        leaves.append(shard.param(t, logical).detach().requires_grad_())
         return leaves[-1]
 
-    tree = tree_map(track, params)
-    loss, metrics = loss_fn(tree, batch, cfg, **loss_kw)
+    logical = logical_specs(cfg)
+    tree = tree_map(track, params, logical)
+    loss, metrics = loss_fn(tree, batch, cfg, shard=shard, **loss_kw)
     grads = iter([torch.zeros_like(t) if g is None else g for t, g in zip(
         leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
+
+    def placed(t, lg):
+        g = shard.param_grad(next(grads), t, lg)
+        if not hasattr(t, "placements"):
+            return g
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(g, t.device_mesh, t.placements,
+                                  run_check=False)
+
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
-        tree_map(lambda _: next(grads), params)
+        tree_map(placed, params, logical)

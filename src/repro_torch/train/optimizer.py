@@ -13,6 +13,11 @@ reference's order of operations, never Python float64, so that the rate
 and the parameters after a step round as the reference's do.  A division
 by a constant divides by a 0-dim float32 tensor: CUDA multiplies by the
 reciprocal of a Python scalar divisor instead, which rounds differently.
+
+On a mesh the parameter, gradient and moment leaves are ``DTensor`` leaves of
+one placement: the update runs on each rank's shards, ``m`` and ``v``
+keep their parameter's placement, and the global norm sums each leaf's
+squares over the mesh dims that split it.
 """
 from __future__ import annotations
 
@@ -70,6 +75,33 @@ def schedule_lr(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
     return cfg.peak_lr * warm * frac
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s shard on this rank; any other tensor as it is."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def _like(t: torch.Tensor, leaf) -> torch.Tensor:
+    """``t`` placed as ``leaf`` is (a ``DTensor`` leaf), else ``t``."""
+    if not hasattr(leaf, "placements"):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, leaf.device_mesh, leaf.placements,
+                              run_check=False)
+
+
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of a leaf in float32: of every shard of a
+    ``DTensor`` (summed over the mesh dims that split it)."""
+    out = torch.sum(_local(leaf).float() ** 2)
+    if hasattr(leaf, "placements"):
+        import torch.distributed as dist
+        mesh = leaf.device_mesh
+        for i, pl in enumerate(leaf.placements):
+            if pl.is_shard() and mesh.size(i) > 1:
+                dist.all_reduce(out, group=mesh.get_group(i))
+    return out
+
+
 def init_opt_state(params: Pytree, master: bool = False) -> Dict[str, Any]:
     """Zeroed float32 moments and a 0-dim int32 step on the parameters'
     device; ``master=True`` also keeps a float32 master copy (for bf16
@@ -87,7 +119,7 @@ def init_opt_state(params: Pytree, master: bool = False) -> Dict[str, Any]:
 
 def global_norm(tree: Pytree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2)
+    return torch.sqrt(sum(_sum_squares(leaf)
                           for _, leaf in tree_leaves(tree)))
 
 
@@ -117,11 +149,11 @@ def adamw_update(params: Pytree, grads: Pytree, state: Dict[str, Any],
         return w32.to(p.dtype), m, v, w32
 
     master = state.get("master")
-    out = tree_map(lambda p, g, m, v, w: upd(p, g, m, v, w), params, grads,
-                   state["m"], state["v"],
+    out = tree_map(lambda p, g, m, v, w: upd(*map(_local, (p, g, m, v, w))),
+                   params, grads, state["m"], state["v"],
                    master if master is not None
-                   else tree_map(lambda p: p.float(), params))
-    pick = lambda i: tree_map(lambda o: o[i], out,
+                   else tree_map(lambda p: _local(p).float(), params))
+    pick = lambda i: tree_map(lambda o, p: _like(o[i], p), out, params,
                               is_leaf=lambda o: isinstance(o, tuple))
     new_state = {"m": pick(1), "v": pick(2), "step": step}
     if master is not None:

@@ -6,7 +6,9 @@ along its first axis into microbatches, whose gradients are summed in
 float32 and divided by their count (the reference's scan), the main
 activation-memory lever beside per-block remat (``ModelConfig.remat``).
 The loss is the microbatches' mean, the other loss metrics the last
-microbatch's.
+microbatch's.  ``shard`` (a ``launch.sharding.Sharder`` with the train
+rules) runs the step on a mesh: ``DTensor`` parameters, each rank's rows
+of the batch.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import torch
 
 from ..models import train as T
 from ..models.config import ModelConfig
+from ..models.layers import Shard, identity_shard
 from ..models.params import tree_map
-from .optimizer import OptConfig, adamw_update, f32
+from .optimizer import OptConfig, _local, adamw_update, f32
 
 Pytree = Any
 Batch = Dict[str, torch.Tensor]
@@ -34,20 +37,24 @@ def _split_batch(batch: Batch, accum: int):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    shard: Shard = identity_shard) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; the inputs are left unchanged."""
 
     def train_step(params: Pytree, opt_state: Pytree, batch: Batch):
         if accum_steps == 1:
-            (loss, metrics), grads = T.value_and_grad(params, batch, cfg)
+            (loss, metrics), grads = T.value_and_grad(params, batch, cfg,
+                                                      shard)
         else:
             grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+                _local(p).shape, dtype=torch.float32, device=p.device),
+                params)
             loss = None
             for mb in _split_batch(batch, accum_steps):
-                (l, metrics), g = T.value_and_grad(params, mb, cfg)
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                (l, metrics), g = T.value_and_grad(params, mb, cfg, shard)
+                grads = tree_map(lambda a, b: a + _local(b).float(), grads,
+                                 g)
                 loss = l if loss is None else loss + l
             n = f32(accum_steps, loss)
             grads = tree_map(lambda g: g / n, grads)

@@ -68,6 +68,14 @@ def test_import_check_covers_every_store_module():
         assert f"src/repro_torch/core/{module}.py" in names
 
 
+def test_import_check_covers_the_mesh_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("launch/mesh", "launch/sharding", "launch/train",
+                   "models/layers", "models/blocks", "models/model",
+                   "models/train", "serve/engine"):
+        assert f"src/repro_torch/{module}.py" in names
+
+
 def test_ast_walk_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom repro.core import run\n"
@@ -437,6 +445,43 @@ def test_attention_kernels_equal_plain_versions_on_the_card(cuda, dtype):
         got = attention.paged_cuda(q, kp, vp, bt, ln)
         want = attention.paged_plain(q, kp, vp, bt, ln)
         assert float((got.float() - want.float()).abs().max()) <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_decode_partials_merge_to_one_paged_call_on_the_card(cuda,
+                                                                    dtype):
+    """Flash-decoding across ranks (ROADMAP A16a): K3's partials entry on
+    each half of every row's pages, merged as two ranks merge them, against
+    one K3 call over all pages and against the plain partials; the same
+    bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dt = getattr(torch, dtype)
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    B, H, KH, dh, page, P = 4, 32, 8, 128, 64, 16
+    q = torch.randn(B, H, dh, generator=g, device=cuda).to(dt)
+    kp = torch.randn(B * P, page, KH, dh, generator=g, device=cuda).to(dt)
+    vp = torch.randn(B * P, page, KH, dh, generator=g, device=cuda).to(dt)
+    bt = torch.randperm(B * P, generator=g, device=cuda).to(
+        torch.int32).view(B, P)
+    lens = torch.tensor([1, 500, 513, P * page], dtype=torch.int32,
+                        device=cuda)
+    half = P // 2 * page
+
+    def halves(partials):
+        return [partials(q, kp, vp, bt[:, r * P // 2:(r + 1) * P // 2]
+                         .contiguous(), torch.clamp(lens - r * half, 0, half)
+                         .to(torch.int32)) for r in (0, 1)]
+
+    got = attention.merge_across(halves(attention.paged_partials_cuda))
+    again = attention.merge_across(halves(attention.paged_partials_cuda))
+    plain = attention.merge_across(halves(attention.paged_partials_plain))
+    one = attention.paged_cuda(q, kp, vp, bt, lens).float()
+    for a, b, c in zip(got, again, plain):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= 2e-5
+        assert float((a.to(dt).float() - one).abs().max()) <= tol
     torch.cuda.synchronize()
 
 

@@ -162,14 +162,6 @@ def test_compressed_allreduce():
 
 
 # --------------------------------------------------------- trainer edges
-def test_trainer_on_a_mesh_is_not_ported_yet():
-    cfg = get_smoke("smollm_135m")
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, OptConfig(), DataConfig(vocab=cfg.vocab, seq_len=8,
-                                             global_batch=2),
-                mesh=object(), device="cpu")
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA")
 def test_no_silent_cpu_fallback():
     cfg = get_smoke("smollm_135m")
