@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card:
 
 ``--phases`` runs a subset of
 kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
-families,train,mesh (all by default; a subset ends in a {"partial": true} line instead of the kernels
+families,train,mesh,dryrun,examples (all by default; a subset ends in a {"partial": true} line instead of the kernels
 and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
 example a parent commit's, to time two versions in one call).
 
@@ -156,7 +156,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 most 1.10x; (c) phase 9 c's crash and bit-exact resume on
                 the mesh; then (d) K3's partials entry on each half of
                 phase 3's decode pages, merged as two ranks merge them,
-                against one K3 call over all of them (the same bits twice).
+                against one K3 call over all of them (the same bits twice);
+  11. dryrun  — the dry-run (launch.dryrun; ROADMAP A16b) held against the
+                card: a child process that sees no card traces phase 9's
+                smollm_135m step and phase 7's qwen3_4b prefill and decode
+                steps on a fake (1, 1) mesh, and qwen3_4b's decode_32k on
+                the fake 16 x 16 mesh, while this process runs the three
+                steps on the card on arguments from the port's init
+                functions (each leaf the cell's shape and dtype), three
+                times after reset_peak_memory_stats: K3/K4 launches and
+                their work a step equal to the dry-run's, its predicted
+                peak within 0.98-1.02x of max_memory_allocated, the
+                roofline's max term beside the step's ms;
+  12. examples — the four twins of examples/*.py (examples/torch/; ROADMAP
+                A17) on the card in this process, their prints on stderr,
+                each gated by its reference's outcome (answers, hits 0/4/6,
+                the resumed step), every kernel launched, no plain call.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -225,6 +240,9 @@ DESIGN = {    # name -> what the kernel's design is, for the kernels line
                        "swizzled tiles; f32: fp32 FMAs on the CUDA cores",
 }
 STORE_KERNELS = ("bloom_probe", "bloom_build", "merge_pair")
+# phase 4's entries, cut from 200,000 for the script's 1,000 s (the CPU
+# store's plain versions take most of the phase); its lines say so
+EQUIV_ENTRIES, EQUIV_FULL = 100_000, 200_000
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's kernel tests
 
 
@@ -682,7 +700,6 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
         err = float((got.float() - want.float()).abs().max())
         same_bits(torch, f"flash_attention {name} run twice", got,
                   attention.flash_cuda(q, k, v, causal=True))
-        pairs = B * H * S * (S + 1) // 2
         row = dict(
             shape=f"B{B} S{S} H{H} KH{KH} dh{dh} causal {name}",
             max_abs_err=err, tolerance=tol, deterministic=True,
@@ -693,8 +710,8 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
                              5, graph=True),
             library_ms=sdpa_ms(torch, q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), is_causal=True),
-            **bound((2 * q.numel() + 2 * k.numel()) * esize,
-                    4 * dh * pairs, peak))
+            **bound(*attention.flash_work(q.shape, k.shape, dt)[::-1],
+                    peak))
         emit({"phase": "kernel", "kernel": "flash_attention", **row})
         if dt == torch.bfloat16:
             rows["flash_attention"] = row
@@ -741,9 +758,8 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
         same_bits(torch, f"paged_attention {name} row 0 alone vs in a batch",
                   attention.paged_cuda(q1[:1], kp, vp, bt[:1], mixed[:1])[0],
                   attention.paged_cuda(q1, kp, vp, bt, mixed)[0])
-        n_tok = int(lens.sum())
-        live_bytes = (2 * q1.numel() + 2 * n_tok * KH * dh) * esize \
-            + bt.numel() * 4 + B * 4
+        paged_ops, live_bytes = attention.paged_work(
+            q1.shape, kp.shape, bt.shape, dt, int(lens.sum()))
         # HBM-cold time: distinct page pools in turn, their live pages
         # together 3x the 50 MB L2, as the 36 layers' caches are in decode
         n_pools = math.ceil(150e6 / live_bytes)
@@ -779,7 +795,7 @@ def attention_rows(torch, attention, dev, seed: int) -> dict:
                 q1, kp, vp, bt, lens), 10, graph=True),
             library_ms=sdpa_ms(torch, q1[:, :, None], kg, vg,
                                attn_mask=mask),
-            **bound(live_bytes, 4 * H * dh * n_tok, peak))
+            **bound(live_bytes, paged_ops, peak))
         emit({"phase": "kernel", "kernel": "paged_attention", **row})
         if dt == torch.bfloat16:
             rows["paged_attention"] = row
@@ -842,16 +858,6 @@ FAMILY_PAGED = (
 )
 
 
-def valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, per (batch, head)."""
-    n = 0
-    for qi in range(Sq):
-        hi = min(Sk - 1, qi) if causal else Sk - 1
-        lo = max(0, qi - window + 1) if window > 0 else 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
 def sdpa_mask_args(torch, Sq: int, Sk: int, causal: bool, window: int,
                    dev) -> dict:
     """SDPA's mask arguments for ``flash_plain``'s mask: ``is_causal`` where
@@ -902,9 +908,8 @@ def family_attention_rows(torch, attention, dev, seed: int) -> list:
                                    k.transpose(1, 2), v.transpose(1, 2),
                                    **sdpa_mask_args(torch, Sq, Sk, causal,
                                                     window, dev)),
-                **bound((2 * q.numel() + 2 * k.numel()) * dt.itemsize,
-                        4 * dh * B * H * valid_pairs(Sq, Sk, causal, window),
-                        peak))
+                **bound(*attention.flash_work(q.shape, k.shape, dt, causal,
+                                              window)[::-1], peak))
             emit({"phase": "kernel_family", **row})
             rows.append(row)
             if not err <= ATTN_TOL[name]:
@@ -926,7 +931,6 @@ def family_attention_rows(torch, attention, dev, seed: int) -> list:
                 q, kp, vp, bt, ln).float()).abs().max())
             same_bits(torch, f"paged_attention {label} {name} run twice",
                       got, attention.paged_cuda(q, kp, vp, bt, ln))
-            n_tok = int(ln.sum())
             kg = kp.reshape(B, P * page, KH, dh).transpose(1, 2)
             vg = vp.reshape(B, P * page, KH, dh).transpose(1, 2)
             mask = (torch.arange(P * page, device=dev)[None]
@@ -944,8 +948,9 @@ def family_attention_rows(torch, attention, dev, seed: int) -> list:
                     q, kp, vp, bt, ln), 10, graph=True),
                 library_ms=sdpa_ms(torch, q[:, :, None], kg, vg,
                                    attn_mask=mask),
-                **bound((2 * q.numel() + 2 * n_tok * KH * dh) * dt.itemsize
-                        + bt.numel() * 4 + B * 4, 4 * H * dh * n_tok, peak))
+                **bound(*attention.paged_work(q.shape, kp.shape, bt.shape,
+                                              dt, int(ln.sum()))[::-1],
+                        peak))
             emit({"phase": "kernel_family", **row})
             rows.append(row)
             if not err <= ATTN_TOL[name]:
@@ -956,6 +961,12 @@ def family_attention_rows(torch, attention, dev, seed: int) -> list:
 
 
 # ------------------------------------------------------------ phase 4
+def reduced_entries(n: int, full: int):
+    """The ``reduced`` field of a phase-4 line: its entries against the
+    count the phase ran before the cut, or None when not cut."""
+    return None if n >= full else f"{n:,} of {full:,} entries"
+
+
 def range_answers(store, starts, lengths, snapshot=None) -> list:
     """The store's answers to scans, seeks and a streaming iterator from
     ``starts`` (under ``snapshot`` if given), and one multi_get."""
@@ -1029,6 +1040,7 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
     torch.cuda.synchronize()
     freed = before - torch.cuda.memory_allocated()
     out = dict(phase="equivalence", entries=n_entries,
+               reduced=reduced_entries(n_entries, EQUIV_FULL),
                runs=sum(len(lvl) for lvl in stores[0]._levels),
                levels=stores[0].num_levels_in_use,
                compactions=stats[0]["compactions"],
@@ -1127,6 +1139,7 @@ def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
     for s in stores:
         s.close()
     out = dict(phase="equivalence_async", entries=n_entries,
+               reduced=reduced_entries(n_entries, EQUIV_FULL),
                config={k: v for k, v in dataclasses.asdict(cfg).items()
                        if k in ("async_compaction", "cache_bytes",
                                 "pin_l0_bytes", "cache_policy",
@@ -1226,6 +1239,7 @@ def equivalence_subsystems(torch, rt, ops, rng, n_entries: int) -> dict:
         except rt.core.CorruptionError as e:
             raised.append((e.block_id, e.run_id == run.run_id, bid))
     out = dict(phase="equivalence_subsystems", entries=n_entries,
+               reduced=reduced_entries(n_entries, EQUIV_FULL // 4),
                view_entries=len(views[0]), view_runs=len(views[0].runs),
                refused_calls=sum(a[0] == "fault" for a in answers[0]),
                fired=fired[0], event_kinds=len(kinds[0]),
@@ -1493,7 +1507,8 @@ def range_phase(torch, rt, ops, store, live, deleted, rng,
                              f"{bad_scans} wrong scans")
     if record is not None:
         record.update(seek_starts=seek_starts, scan_starts=scan_starts,
-                      lengths=lengths, seeks=got_seeks, scans=got_scans,
+                      lengths=lengths, seeks=got_seeks,
+                      want_seeks=want_seeks, scans=got_scans,
                       prof_starts=prof_starts, prof_lens=prof_lens)
     return out
 
@@ -2501,19 +2516,44 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
     if phase5_reads is not None:
         # Seeks keep the runs' approximate liveness (a run's entry answers
         # even when a memtable tombstone shadows it), so where the flush
-        # boundaries differ, so may a seek: phase 5 may answer a deleted
-        # key its runs still held while no run of the shards holds it (its
-        # put was overwritten by the delete in a shard's memtable, or a
-        # compaction dropped both).  Any other difference is a fault.
+        # boundaries differ, so may a seek, either way: phase 5 may answer
+        # a deleted key its runs still held while no run of the shards
+        # holds it (its put was overwritten by the delete in a shard's
+        # memtable, or a compaction dropped both), and the shards may
+        # answer a deleted key one of their runs holds while phase 5's
+        # runs did not (phase 5's own answer, checked against its state,
+        # passed it), their next answer after it being phase 5's.  Any
+        # other difference is a fault.
         p5_seeks, p5_scans = phase5_reads["seeks"], phase5_reads["scans"]
-        differ = [(g, p) for g, p in zip(got_seeks, p5_seeks) if g != p]
+        # each differing seek beside its own store's oracle answer
+        differ = [(a, g, p, w, w5) for a, g, p, w, w5 in zip(
+            seek_starts.tolist(), got_seeks, p5_seeks, want_seeks,
+            phase5_reads["want_seeks"]) if g != p]
+
+        def explained(g, p) -> bool:
+            if p is None or g is None:
+                return False
+            if g > p:
+                return member(dead, p) and not member(run_keys, p)
+            return member(dead, g) and member(run_keys, g) \
+                and db.seek(g + 1) == p
+
         vs5 = dict(scans_equal=got_scans == p5_scans,
                    seeks_equal=len(got_seeks) - len(differ),
                    seeks_differ=len(differ),
                    seeks_differ_unexplained=sum(
-                       1 for g, p in differ
-                       if p is None or g is None or g < p
-                       or not member(dead, p) or member(run_keys, p)))
+                       1 for _, g, p, _, _ in differ
+                       if not explained(g, p)),
+                   differing_seeks=[dict(
+                       start=str(a), shards=str(g), phase5=str(p),
+                       shards_oracle=str(w), phase5_oracle=str(w5),
+                       both_match_oracle=g == w and p == w5,
+                       shards_dead=g is not None and member(dead, g),
+                       shards_run_holds=g is not None
+                       and member(run_keys, g),
+                       phase5_dead=p is not None and member(dead, p),
+                       explained=explained(g, p))
+                       for a, g, p, w, w5 in differ[:10]])
     out = dict(
         part="a_dbbench", shards=n, entries=int(keys.size),
         config={k: v for k, v in dataclasses.asdict(cfg).items()
@@ -3661,16 +3701,356 @@ def mesh_phase(torch, ops, bloom, merge, attention, dev, seed: int,
         raise AssertionError(f"mesh phase failed: {bad}")
     return out
 
+# ------------------------------------------------------------ phase 11
+# the dry-run's calibration cells: phase 9's training step, phase 7's
+# prefill of 4 x 512-token prompts (K4) and its decode step against a cache
+# of s_max 1024 (K3), each on a (1, 1) mesh: (arch, shape, seq_len, global
+# batch, mode, accum)
+CALIBRATION = (("smollm_135m", "phase9_train", 2048, 8, "train", 1),
+               ("qwen3_4b", "phase7_prefill", 512, 4, "prefill", None),
+               ("qwen3_4b", "phase7_decode", 1024, 4, "decode", None))
+CALIBRATION_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=15,
+                       schedule="wsd")                 # phase 9's trainer
+PEAK_RATIO = (0.98, 1.02)      # predicted over measured peak bytes, gate
+DRYRUN_CHILD = """
+import json, sys
+import repro_torch.configs as C
+from repro_torch.launch.dryrun import roofline_terms, run_cell, trace_cell
+from repro_torch.launch.mesh import fake_mesh
+from repro_torch.launch.specs import build_cell
+from repro_torch.train import OptConfig
+cells, opt, out_dir = json.loads(sys.argv[1])
+out = {}
+for arch, shape, S, B, mode, accum in cells:
+    C.SHAPES[shape] = C.ShapeSpec(shape, S, B, mode)
+    cell = build_cell(arch, shape, fake_mesh((1, 1), ("data", "model")),
+                      opt_cfg=OptConfig(**opt), accum=accum)
+    cost, trace_s = trace_cell(cell)
+    out[arch + "/" + shape] = dict(
+        trace_cost=cost.as_dict(), trace_s=trace_s,
+        roofline=roofline_terms(cost, 1, cell.cfg, C.SHAPES[shape]))
+out["qwen3_4b/decode_32k"] = run_cell("qwen3_4b", "decode_32k", False,
+                                      force=True, out_dir=out_dir)
+print(json.dumps(out))
+"""
+
+
+def start_dryrun_child(src: str) -> subprocess.Popen:
+    """The dry-run of the calibration cells and of qwen3_4b's decode_32k
+    on the 16 x 16 mesh, in a process of its own (a fake process group of
+    its own), which sees no card."""
+    env = dict(os.environ, PYTHONPATH=str(Path(src).resolve()),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD,
+         json.dumps([CALIBRATION, CALIBRATION_OPT,
+                     str(ROOT / "dryrun_torch")])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def placed_like(torch, fake, real) -> tuple:
+    """``real`` (a tree of tensors on the card) placed as the cell's
+    ``fake`` arguments are, on their (1, 1) mesh, where a rank's shard is
+    the whole leaf; and the leaves whose shape or dtype differ."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from torch.distributed.tensor import DTensor
+    bad = [p for (p, f), (_, r) in zip(tree_leaves(fake), tree_leaves(real))
+           if tuple(f.shape) != tuple(r.shape) or f.dtype != r.dtype]
+    if len(list(tree_leaves(fake))) != len(list(tree_leaves(real))):
+        bad.append("leaf count")
+    return tree_map(lambda f, r: DTensor.from_local(
+        r, f.device_mesh, f.placements, run_check=False)
+        if hasattr(f, "placements") else r, fake, real), bad
+
+
+def calibration_args(torch, cfg, mode: str, S: int, B: int, dev,
+                     seed: int) -> tuple:
+    """Real arguments of a calibration cell, from the port's own init
+    functions: the parameters from the seed, AdamW's zeroed state and
+    phase 9's first batch (training), ``B`` prompts of ``S`` tokens drawn
+    from the seed (prefill), or a zeroed cache of ``S`` and one token a
+    row (decode)."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import init_opt_state
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    if mode == "train":
+        batch = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                           global_batch=B, seed=seed)
+                                ).get_batch(0)
+        return (params, init_opt_state(params),
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    if mode == "prefill":
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+        return params, {"tokens": torch.from_numpy(prompts).to(
+            dev, torch.int32)}
+    tokens = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    return params, tokens, init_cache(cfg, B, S, dev)
+
+
+@contextmanager
+def recording_attention_work(attention):
+    """Adds up, inside the block, the work (``flash_work`` /
+    ``paged_work``: [operations, bytes]) of every K3 and K4 launch, from
+    the shapes that reached the kernel's wrapper on the card."""
+    work = {k: [0, 0] for k in ATTN_KERNELS}
+    saved = {n: getattr(attention, n) for n in (
+        "flash_cuda", "paged_cuda", "paged_partials_cuda")}
+
+    def add(name, w):
+        work[name][0] += w[0]
+        work[name][1] += w[1]
+
+    def flash(q, k, v, *, causal=True, window=0):
+        add("flash_attention", attention.flash_work(q.shape, k.shape,
+                                                    q.dtype, causal, window))
+        return saved["flash_cuda"](q, k, v, causal=causal, window=window)
+
+    def paged(fn):
+        def run(q, k_pages, v_pages, block_tables, lengths):
+            add("paged_attention", attention.paged_work(
+                q.shape, k_pages.shape, block_tables.shape, q.dtype))
+            return saved[fn](q, k_pages, v_pages, block_tables, lengths)
+        return run
+
+    attention.flash_cuda = flash
+    attention.paged_cuda = paged("paged_cuda")
+    attention.paged_partials_cuda = paged("paged_partials_cuda")
+    try:
+        yield work
+    finally:
+        for n, f in saved.items():
+            setattr(attention, n, f)
+
+
+def measure_cell(torch, ops, dev, mesh, seed: int, entry,
+                 runs: int = 3) -> dict:
+    """One calibration cell's step on the card: its arguments made by the
+    port's init functions and held leaf by leaf against the cell's, then
+    ``runs`` steps after ``reset_peak_memory_stats``: K3 and K4 launches
+    and work a step, step ms, and the peak above what was allocated before
+    the arguments."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import attention
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import OptConfig
+    arch, shape, S, B, mode, accum = entry
+    C.SHAPES[shape] = C.ShapeSpec(shape, S, B, mode)
+    cell = build_cell(arch, shape, mesh, opt_cfg=OptConfig(**CALIBRATION_OPT),
+                      accum=accum, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args, bad_leaves = placed_like(torch, cell.args, calibration_args(
+        torch, cell.cfg, mode, S, B, dev, seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms = []
+    with recording_attention_work(attention) as work:
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            del out
+    measured = torch.cuda.max_memory_allocated() - base
+    counts = ops.launch_counts()
+    del args
+    torch.cuda.empty_cache()
+    return dict(name=cell.name, mode=mode, accum=cell.accum,
+                leaves=len(list(tree_leaves(cell.args))),
+                leaves_differing=bad_leaves, step_ms=step_ms,
+                peak_measured_bytes=measured, counts=counts,
+                launches_per_step={k: counts[k] / runs
+                                   for k in ATTN_KERNELS},
+                work_per_step={k: [w / runs for w in work[k]]
+                               for k in ATTN_KERNELS},
+                plain_calls={k: v for k, v in ops.PLAIN_CALLS.items() if v})
+
+
+def calibration_line(meas: dict, pred: dict) -> tuple:
+    """A calibration cell's line and failed gates: the card's ``meas``
+    beside the dry-run's ``pred`` (K3/K4 launches and their work equal,
+    peak ratio within PEAK_RATIO)."""
+    name, launches = meas["name"], meas["launches_per_step"]
+    cost, roof = pred["trace_cost"], pred["roofline"]
+    predicted = {k: cost["launches"].get(k, 0) for k in ATTN_KERNELS}
+    work_predicted = {k: [float(w) for w in cost["kernel_work"].get(
+        k, [0, 0])] for k in ATTN_KERNELS}
+    terms = {k: roof[k] for k in ("compute_s", "memory_s", "collective_s")}
+    ratio = cost["peak_bytes"] / meas["peak_measured_bytes"]
+    line = dict(part=f"calibration {name}", mesh=[1, 1],
+                **{k: v for k, v in meas.items()
+                   if k not in ("name", "counts")},
+                launches_predicted=predicted,
+                work_predicted=work_predicted,
+                peak_predicted_bytes=cost["peak_bytes"], peak_ratio=ratio,
+                argument_bytes_predicted=cost["argument_bytes"],
+                step_ms_min=min(meas["step_ms"]),
+                roofline_s=max(terms.values()), roofline_terms=terms,
+                roofline_dominant=roof["dominant"],
+                flops_by_dtype=cost["flops_by_dtype"],
+                hbm_bytes=cost["hbm_bytes"],
+                aten_ops_predicted=cost["launches"].get("aten_ops", 0),
+                trace_s=pred["trace_s"])
+    bad = []
+    if meas["leaves_differing"]:
+        bad.append(f"{name}: arguments differ from the cell's at "
+                   f"{meas['leaves_differing']}")
+    if any(launches[k] != predicted[k] for k in ATTN_KERNELS):
+        bad.append(f"{name}: launches {launches} on the card, {predicted} "
+                   f"counted by the dry-run")
+    if meas["work_per_step"] != work_predicted:
+        bad.append(f"{name}: K3/K4 work {meas['work_per_step']} on the "
+                   f"card, {work_predicted} counted by the dry-run")
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        bad.append(f"{name}: predicted peak {cost['peak_bytes']} is "
+                   f"{ratio:.3f}x the measured {meas['peak_measured_bytes']}")
+    if meas["plain_calls"]:
+        bad.append(f"{name}: plain versions ran: {meas['plain_calls']}")
+    return line, bad
+
+
+def dryrun_phase(torch, ops, dev, seed: int, src: str) -> dict:
+    """Phase 11: the dry-run held against the card.  A child process traces
+    the three calibration cells on a fake (1, 1) mesh and qwen3_4b's
+    decode_32k on the fake 16 x 16 mesh while this one runs the
+    calibration cells' steps on the card; their K3/K4 launches and the
+    work of those launches must equal, and the predicted peak lie within
+    PEAK_RATIO of the measured."""
+    from repro_torch.launch.mesh import make_mesh
+    t = time.perf_counter()
+    child = start_dryrun_child(src)
+    try:
+        mesh = make_mesh((1, 1), dev)
+        measured = [measure_cell(torch, ops, dev, mesh, seed, entry)
+                    for entry in CALIBRATION]
+        card_s = time.perf_counter() - t
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"dry-run child failed ({child.returncode}): "
+                             f"{stderr[-3000:]}")
+    pred = json.loads(stdout.strip().splitlines()[-1])
+    bad, launches = [], {k: 0 for k in KERNELS}
+    for meas in measured:
+        line, bad_c = calibration_line(meas, pred[meas["name"]])
+        emit({"phase": "dryrun", **line})
+        bad += bad_c
+        launches = {k: launches[k] + meas["counts"][k] for k in KERNELS}
+    prod = pred["qwen3_4b/decode_32k"]
+    emit({"phase": "dryrun", "part": "production qwen3_4b/decode_32k",
+          **{k: prod.get(k) for k in (
+              "status", "chips", "mesh_shape", "trace_s", "memory_analysis",
+              "roofline", "error")},
+          "trace_cost": {k: prod.get("trace_cost", {}).get(k) for k in (
+              "flops_by_dtype", "hbm_bytes", "coll_bytes", "coll_by_kind",
+              "coll_by_link", "coll_count", "launches")}})
+    if prod.get("status") != "ok":
+        bad.append(f"decode_32k on 16 x 16: {prod.get('error')}")
+    out = dict(phase="dryrun", part="summary", s=time.perf_counter() - t,
+               card_s=card_s, launches=launches)
+    emit(out)
+    if bad:
+        raise AssertionError(f"dryrun phase failed: {bad}")
+    return out
+
+
+# ------------------------------------------------------------ phase 12
+EXAMPLES = ("quickstart", "kernels_demo", "serve_autumnkv",
+            "train_with_failures")
+
+
+def load_example(name: str):
+    """The module of examples/torch/<name>.py."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_checks(name: str, r: dict) -> dict:
+    """Each example's gates: the reference example's own assertions and
+    the outcome its run is known for."""
+    if name == "quickstart":
+        return {"point read": r["point_read"] == b"value-",
+                "range read sorted": r["range_read"] == sorted(
+                    r["range_read"]) and len(r["range_read"]) == 5,
+                "levels": r["levels"] >= 1}
+    if name == "kernels_demo":
+        return {"members all hit": r["members_all_hit"],
+                "bloom equals plain": r["bloom_mismatches"] == 0,
+                "merge equals plain": r["merge_mismatches"] == 0,
+                "merged 8000, 5000 from b": (r["merged"], r["from_b"])
+                == (8000, 5000) and r["merged_sorted"],
+                "paged within 2e-5": r["paged_err"] <= ATTN_TOL["float32"],
+                "flash within 2e-2": r["flash_err"] <= ATTN_TOL["bfloat16"]}
+    if name == "serve_autumnkv":
+        w = r["waves"]
+        return {"hits 0/4/6": [x["hits"] for x in w] == [0, 4, 6],
+                "warm tokens equal cold": w[1]["tokens"] == w[0]["tokens"],
+                "mixed shared rows equal cold":
+                    w[2]["tokens"][2:] == w[0]["tokens"][2:]}
+    return {"resumed at 30": r["resumed"] == 30, "ended at 60":
+            r["step"] == 60, "losses finite": all(
+                math.isfinite(x) for _, x in r["losses"])}
+
+
+def examples_phase(torch, ops, dev) -> dict:
+    """Phase 12: the four examples' twins on the card, in this process,
+    their prints on stderr; each one's gates, and every kernel launched
+    with no plain call."""
+    from contextlib import redirect_stdout
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    bad = []
+    for name in EXAMPLES:
+        t1 = time.perf_counter()
+        with redirect_stdout(sys.stderr):
+            r = load_example(name).main(device=str(dev))
+        checks = example_checks(name, r)
+        keep = {k: v for k, v in r.items()
+                if not k.endswith("_out") and k != "point_read"}
+        emit({"phase": "examples", "example": name,
+              "s": time.perf_counter() - t1, "checks": checks,
+              **json.loads(json.dumps(keep, default=str))})
+        bad += [f"{name}: {k}" for k, ok in checks.items() if not ok]
+        torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    plain = {k: v for k, v in ops.PLAIN_CALLS.items() if v}
+    out = dict(phase="examples", part="summary", s=time.perf_counter() - t,
+               launches={k: launches[k] for k in KERNELS}, plain_calls=plain)
+    emit(out)
+    idle = [k for k in KERNELS if launches[k] == 0]
+    if idle:
+        bad.append(f"kernels not launched by the examples: {idle}")
+    if plain:
+        bad.append(f"plain versions ran in the examples: {plain}")
+    if bad:
+        raise AssertionError(f"examples phase failed: {bad}")
+    return out
+
 
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
-          "durability", "sharded", "serve", "families", "train", "mesh")
+          "durability", "sharded", "serve", "families", "train", "mesh",
+          "dryrun", "examples")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--entries", type=int, default=10_000_000,
                     help="phase-5 and phase-6 entry count (10M by default)")
-    ap.add_argument("--equiv-entries", type=int, default=200_000,
+    ap.add_argument("--equiv-entries", type=int, default=EQUIV_ENTRIES,
                     help="phase-4 entry count")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3793,6 +4173,11 @@ def main() -> int:
     if "mesh" in phases:
         by_path["mesh"] = mesh_phase(torch, ops, bloom, merge, attention, dev,
                                      args.seed, served)["launches"]
+    if "dryrun" in phases:
+        by_path["dryrun"] = dryrun_phase(torch, ops, dev, args.seed,
+                                         args.src)["launches"]
+    if "examples" in phases:
+        by_path["examples"] = examples_phase(torch, ops, dev)["launches"]
     if list(phases) != list(PHASES):
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()

@@ -25,12 +25,18 @@ alone and returns each split's softmax statistics ``(acc, ml, live)``
 before the combine, :func:`paged_partials_plain` is its plain version,
 and :func:`merge_partials` merges them, across the ranks where it is
 given their all-reduces, in the combine kernel's order of operations.
+
+:func:`flash_work` and :func:`paged_work` count a call's work, the
+operations of its products and the bytes it must move, from shapes alone:
+``chip_smoke.py`` reckons each kernel's bound from them, and the dry-run
+(``launch.trace_cost``) adds them for every call it traces.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -46,6 +52,44 @@ MAX_GROUP = 32
 PAGED_MAX_PAIRS = 1024
 SPLIT_MIN_KEYS = 64     # positions a paged split covers at the least
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ------------------------------------------------------------ work counts
+def flash_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    qi = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Sk - 1, qi) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qi - window + 1) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_work(q_shape, k_shape, dtype: torch.dtype, causal: bool = True,
+               window: int = 0) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one flash call: two products of ``dh``
+    multiply-adds per live (query, key) pair and head, and q read, the
+    output written, k and v read once each."""
+    B, Sq, H, dh = q_shape
+    Sk, KH = k_shape[1], k_shape[2]
+    size = torch.finfo(dtype).bits // 8
+    pairs = B * H * flash_pairs(Sq, Sk, causal, window)
+    return 4 * dh * pairs, (2 * B * Sq * H * dh + 2 * B * Sk * KH * dh) * size
+
+
+def paged_work(q_shape, pages_shape, table_shape, dtype: torch.dtype,
+               tokens: Optional[int] = None) -> Tuple[int, int]:
+    """``(operations, bytes)`` of one paged call over ``tokens`` live
+    positions in all (every position of every row's pages by default,
+    the read of a cache that is full): the two products per position and
+    query head, q read and the output written, each live position's K
+    and V read once, the block table and the lengths."""
+    B, H, dh = q_shape
+    _, page, KH, _ = pages_shape
+    if tokens is None:
+        tokens = B * table_shape[1] * page
+    size = torch.finfo(dtype).bits // 8
+    return (4 * H * dh * tokens,
+            (2 * B * H * dh + 2 * tokens * KH * dh) * size
+            + B * table_shape[1] * 4 + B * 4)
 
 
 # ------------------------------------------------------------ plain versions

@@ -37,6 +37,8 @@ LAUNCHES = {"bloom_probe": 0, "bloom_build": 0}
 # bloom_probe launch, in order (see ops.launch_sizes)
 LAUNCH_SIZES: Dict[str, list] = {"bloom_build": [], "bloom_probe": []}
 
+HASH_OPS = 30      # hash_pair: two mix32 chains, xors, or
+PROBE_OPS = 6      # one bit test: mul, add, mod, shift, and, test
 H100_SMEM_OPTIN = 232_448    # bytes of shared memory one block may take
 H100_SMS = 132               # streaming multiprocessors of an H100 SXM
 STAGE = 32_768               # positions a bucket block sorts, at the most
@@ -98,6 +100,22 @@ def probe_plain(keys: torch.Tensor, bits: torch.Tensor,
         word = bits[pos >> 5].to(torch.int64) & M32
         maybe &= ((word >> (pos & 31)) & 1) != 0
     return maybe
+
+
+def probe_work(n: int, m_words: int, k: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of a probe of ``n`` keys from shapes alone:
+    every key's hash and all ``k`` bit tests (a clear bit stops a key
+    early, which only its data shows), the keys read, one byte out a
+    key, and each filter word that ``k`` positions a key can reach read
+    once."""
+    return n * (HASH_OPS + k * PROBE_OPS), n * 9 + min(m_words, n * k) * 4
+
+
+def build_work(n: int, m_words: int, k: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of a build of ``n`` keys into ``m_words``
+    words: the hash and ``k`` positions a key, the keys read and the words
+    written once."""
+    return n * (HASH_OPS + k * PROBE_OPS), n * 8 + m_words * 4
 
 
 def u32_to_i32(words: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ counted once) and appends ``(na, nb)`` to :data:`LAUNCH_SIZES`.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -41,6 +42,15 @@ def _check_rows(na: int, nb: int) -> None:
     if na > MAX_ROWS or nb > MAX_ROWS:
         raise ValueError(f"merge_pair takes at most {MAX_ROWS} rows per "
                          f"input, got {na} and {nb}")
+
+
+def merge_work(na: int, nb: int) -> Tuple[int, int]:
+    """``(operations, bytes)`` of a merge: each key's rank by a binary
+    search of the other column, the keys read and the keys and sources
+    written once."""
+    n = na + nb
+    return (n * 4 + 5 * (na * math.ceil(math.log2(nb + 1))
+                         + nb * math.ceil(math.log2(na + 1))), n * 8 + n * 16)
 
 
 def merge_pair_plain(a: torch.Tensor, b: torch.Tensor

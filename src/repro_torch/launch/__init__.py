@@ -1,3 +1,4 @@
 """Launchers: device meshes and the sharding rules (``mesh``,
-``sharding``) and the trainer (``train``); the dry-run layer is ROADMAP
-A16b."""
+``sharding``), the trainer (``train``), and the dry-run that traces every
+(arch x shape x mesh) cell on a fake process group (``specs``,
+``trace_cost``, ``dryrun``)."""

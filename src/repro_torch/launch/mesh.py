@@ -10,6 +10,12 @@ device nor a process group.
 shape-only mesh (an object with ``axis_names`` and ``devices.shape``, as
 the reference's tests build), so the sharding rules are pure functions of
 a mesh's shape.
+
+The dry-run's meshes (:func:`make_production_mesh`, :func:`fake_mesh`)
+stand over a fake process group (``torch.testing``'s ``FakeStore`` and the
+``fake`` backend): one process plays rank 0 of all the ranks, and its
+collectives move nothing.  They are for tensors with no data only
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -25,13 +31,38 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def make_production_mesh(*, multi_pod: bool = False
-                         ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
-    """The reference's production mesh as ``(shape, axis names)``: 16 x 16
-    chips a pod, (2, 16, 16) over two pods.  Only the shape: building it
-    over a fake process group is the dry-run's (ROADMAP A16b), and nothing
-    is allocated here."""
-    return PRODUCTION_SHAPES[multi_pod]
+def fake_process_group(world_size: int) -> None:
+    """Rank 0 of a fake process group of ``world_size`` ranks, made where
+    none exists (an existing fake group of another size is replaced; any
+    other group is an error)."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group exists: the dry-run's "
+                               "fake group needs a process of its own")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` over a fake process group of as many
+    ranks, seen from rank 0."""
+    from torch.distributed.device_mesh import init_device_mesh
+    n = 1
+    for d in shape:
+        n *= d
+    fake_process_group(n)
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh, 16 x 16 chips a pod or (2, 16, 16)
+    over two pods, as a ``DeviceMesh`` over a fake process group of 256
+    (or 512) ranks, made where none exists (:func:`fake_mesh`)."""
+    return fake_mesh(*PRODUCTION_SHAPES[multi_pod])
 
 
 def ensure_process_group(device=None) -> None:

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -134,11 +135,12 @@ def _ring_slots(cache: torch.Tensor, t: torch.Tensor, S: int, s_cache: int,
         slots = (torch.arange(take, device=t.device) + S - take) % s_cache
         cache[:, slots] = t[:, S - take:].to(cache.dtype)
         return
-    slots = (torch.arange(take) + S - take) % s_cache
-    keep = (slots >= lo) & (slots < lo + cache.shape[1])
-    rows = torch.arange(take)[keep].to(t.device)
-    cache[:, (slots[keep] - lo).to(t.device)] = \
-        t[:, S - take:][:, rows].to(cache.dtype)
+    # the rank's slots, found on the host from the shapes alone
+    slots = (np.arange(take) + S - take) % s_cache
+    rows = np.flatnonzero((slots >= lo) & (slots < lo + cache.shape[1]))
+    cache[:, torch.from_numpy(slots[rows] - lo).to(t.device)] = \
+        t[:, S - take:][:, torch.from_numpy(rows).to(t.device)].to(
+            cache.dtype)
 
 
 # ====================================================================== attn

@@ -31,6 +31,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples" / "torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -74,6 +75,18 @@ def test_import_check_covers_the_mesh_modules():
                    "models/layers", "models/blocks", "models/model",
                    "models/train", "serve/engine"):
         assert f"src/repro_torch/{module}.py" in names
+
+
+def test_import_check_covers_the_dryrun_and_the_examples():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for path in ("src/repro_torch/launch/specs.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/trace_cost.py",
+                 "examples/torch/quickstart.py",
+                 "examples/torch/kernels_demo.py",
+                 "examples/torch/serve_autumnkv.py",
+                 "examples/torch/train_with_failures.py"):
+        assert path in names
 
 
 def test_ast_walk_catches_a_forbidden_import(tmp_path):

@@ -10,7 +10,13 @@ against JAX: the loss, metrics and every gradient leaf within 1e-4 of
 max(1, |reference|) in float32, prefill and decode logits within 1e-4
 with equal greedy tokens.  Mesh (1, 1) must give no mesh's bits.
 """
+import json
 import math
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +38,7 @@ from repro_torch.models.params import (logical_specs, param_table,  # noqa: E402
                                        tree_leaves)
 
 F32_TOL = 1e-4
+ROOT = Path(__file__).resolve().parents[1]
 
 
 class FakeMesh:
@@ -297,7 +304,29 @@ def test_data_axes_and_abstract_params():
 
 
 def test_production_mesh_shapes_allocate_nothing():
-    from repro_torch.launch.mesh import make_production_mesh
-    assert make_production_mesh() == ((16, 16), ("data", "model"))
-    shape, names = make_production_mesh(multi_pod=True)
+    """The production meshes' shapes read without a process group, and the
+    meshes themselves built over a fake group in a child process (the
+    dry-run's), holding no device tensor."""
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES
+    assert PRODUCTION_SHAPES[False] == ((16, 16), ("data", "model"))
+    shape, names = PRODUCTION_SHAPES[True]
     assert math.prod(shape) == 512 and names == ("pod", "data", "model")
+    code = textwrap.dedent("""
+        import json
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_production_mesh
+        out = []
+        for multi in (False, True):
+            m = make_production_mesh(multi_pod=multi)
+            out.append([list(m.shape), list(m.mesh_dim_names),
+                        m.device_type, dist.get_backend(),
+                        dist.get_world_size()])
+        print(json.dumps(out))
+    """)
+    got = subprocess.run([sys.executable, "-c", code], env=dict(
+        os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=120)
+    assert got.returncode == 0, got.stderr
+    assert json.loads(got.stdout.strip().splitlines()[-1]) == [
+        [[16, 16], ["data", "model"], "cpu", "fake", 256],
+        [[2, 16, 16], ["pod", "data", "model"], "cpu", "fake", 512]]
