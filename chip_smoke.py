@@ -9,9 +9,10 @@ Run from the repository root on a machine with a CUDA card:
 
 ``--phases`` runs a subset of
 kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
-families,train,mesh,dryrun,examples (all by default; a subset ends in a {"partial": true} line instead of the kernels
-and ok lines); ``--src`` imports repro_torch from another checkout's src/ (for
-example a parent commit's, to time two versions in one call).
+families,train,mesh,dryrun,examples,policies (all by default; a subset ends
+in a {"partial": true} line instead of the kernels and ok lines); ``--src``
+imports repro_torch from another checkout's src/ (for example a parent
+commit's, to time two versions in one call).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
@@ -56,8 +57,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 counts and event kinds, and the same CorruptionError from a
                 block corrupted by a same-seed injector on each;
   5. db_bench — fillrandom then readrandom at LevelDB's documented
-                defaults (10M entries, 16-byte keys, 100-byte values, 4 MiB
-                write buffer, 10 bits per key), every answer checked; the
+                defaults (16-byte keys, 100-byte values, 4 MiB write
+                buffer, 10 bits per key; 8M of 10M entries, ``reduced``,
+                as in phases 6 and 6b), every answer checked; the
                 load's last chunk under the profiler (device time by
                 kernel), and the size distribution of every bloom-build,
                 merge and probe launch; then, on the same store, seekrandom
@@ -73,7 +75,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 paranoid reads (keys/s, at most one verify pass per run a
                 wave); faults (a block_read failure injected and cleared; a
                 corrupted block of the deepest run caught and named by a
-                paranoid read and by scrub); then YCSB workload A (2^20
+                paranoid read and by scrub); then YCSB workload A (2^19
                 operations, zipfian, over 1M keys) on an async store with
                 the online tuner beside an untuned twin: every read checked
                 and equal, knobs in bounds, every actuation at a boundary;
@@ -171,7 +173,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   12. examples — the four twins of examples/*.py (examples/torch/; ROADMAP
                 A17) on the card in this process, their prints on stderr,
                 each gated by its reference's outcome (answers, hits 0/4/6,
-                the resumed step), every kernel launched, no plain call.
+                the resumed step), every kernel launched, no plain call;
+  13. policies — the paper's six merge policies (the reference's
+                benchmarks/complexity_check.py: leveling, tiering,
+                lazy-leveling and qlsm-bush at c = 1, garnering at c = 0.8
+                and 0.5, all at T = 2): (a) phase 4's op sequence at 20,000
+                entries on a CUDA and a CPU store of each, at a 16 KiB
+                memtable and a 64 KiB base with Monkey filters: the same
+                tree, IOStats and answers, the store kernels launched; (b)
+                phase 5's db_bench at LevelDB's geometry under each, at
+                1,000,000 entries (``reduced``): load
+                entries/s, compaction s, levels beside Eq. 6, runs and
+                their device bytes, write amplification, delayed
+                compactions, a wave of live and deleted keys, a wave of
+                absent keys (runs touched and blocks read a key) and 2,000
+                scans of 10 (runs touched a scan), every answer checked;
+                each store freed before the next; (c) the orderings that
+                tests/test_system.py asserts, printed as found (findings,
+                not gates), and the store kernels' launches.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
 script exits non-zero before any phase runs.
 """
@@ -981,13 +1000,12 @@ def range_answers(store, starts, lengths, snapshot=None) -> list:
     return [scans, seeks, streamed, gets]
 
 
-def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
-    """One seeded op sequence on a CUDA store and a CPU store, with a
-    snapshot taken mid-load: bit-identical trees, IOStats, point and range
-    answers on the current state and under the snapshot; after the
-    snapshot's release no pin is left and its runs leave the device."""
-    cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
-                       bits_per_key=10)
+def equivalence_run(torch, rt, rng, n_entries: int, cfg) -> tuple:
+    """Phase 4's seeded op sequence (puts, overwrites, deletes, batches,
+    edge keys, a snapshot taken mid-load) on a CUDA store and a CPU store of
+    ``cfg``, and the comparison of their trees, IOStats, memtables, point
+    answers and range answers on the current state and under the snapshot.
+    Returns (the comparison's fields, the two stores, their snapshots)."""
     stores = [rt.LSMStore(cfg, device="cuda"), rt.LSMStore(cfg, device="cpu")]
     space = n_entries // 2
     keys = rng.integers(0, space, n_entries, dtype=np.uint64)
@@ -1031,17 +1049,7 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
             for ra, rb in zip(la, lb))
         for la, lb in zip(cols[0]["levels"], cols[1]["levels"]))
     del cols
-    # the snapshot's runs: held on the device until the release
-    held = [len(s.storage) for s in stores]
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    for s, snap in zip(stores, snaps):
-        s.release_snapshot(snap)
-    torch.cuda.synchronize()
-    freed = before - torch.cuda.memory_allocated()
-    out = dict(phase="equivalence", entries=n_entries,
-               reduced=reduced_entries(n_entries, EQUIV_FULL),
-               runs=sum(len(lvl) for lvl in stores[0]._levels),
+    out = dict(runs=sum(len(lvl) for lvl in stores[0]._levels),
                levels=stores[0].num_levels_in_use,
                compactions=stats[0]["compactions"],
                cuda_load_s=load_s[0], cpu_load_s=load_s[1],
@@ -1054,16 +1062,39 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
                same_snapshot_answers=snap_ranges[0] == snap_ranges[1],
                snapshot_differs_from_current=snap_ranges[0] != ranges[0],
                same_memtable=rt.columns_of(stores[0])["memtable"]
-               == rt.columns_of(stores[1])["memtable"],
+               == rt.columns_of(stores[1])["memtable"])
+    return out, stores, snaps
+
+
+EQUIVALENCE_GATES = ("same_tree", "same_stats", "same_answers",
+                     "same_range_answers", "same_snapshot_answers",
+                     "snapshot_differs_from_current", "same_memtable")
+
+
+def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
+    """One seeded op sequence on a CUDA store and a CPU store, with a
+    snapshot taken mid-load: bit-identical trees, IOStats, point and range
+    answers on the current state and under the snapshot; after the
+    snapshot's release no pin is left and its runs leave the device."""
+    cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
+                       bits_per_key=10)
+    fields, stores, snaps = equivalence_run(torch, rt, rng, n_entries, cfg)
+    # the snapshot's runs: held on the device until the release
+    held = [len(s.storage) for s in stores]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for s, snap in zip(stores, snaps):
+        s.release_snapshot(snap)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    out = dict(phase="equivalence", entries=n_entries,
+               reduced=reduced_entries(n_entries, EQUIV_FULL), **fields,
                runs_held_by_snapshot=held[0] - len(stores[0].storage),
                pins_after_release=[s.manifest.total_pin_refs()
                                    for s in stores],
                device_bytes_freed_by_release=freed)
     emit(out)
-    ok = ("same_tree", "same_stats", "same_answers", "same_range_answers",
-          "same_snapshot_answers", "snapshot_differs_from_current",
-          "same_memtable")
-    if not all(out[name] for name in ok):
+    if not all(out[name] for name in EQUIVALENCE_GATES):
         raise AssertionError("CUDA store differs from the CPU store")
     if out["pins_after_release"] != [0, 0] or held[0] != held[1] \
             or out["runs_held_by_snapshot"] <= 0 or freed <= 0:
@@ -1558,6 +1589,9 @@ def run_device_bytes(store) -> int:
 DB_BENCH = dict(policy="garnering", T=2.0, c=0.8, memtable_bytes=4 << 20,
                 base_level_bytes=10 << 20, l0_compaction_trigger=4,
                 bits_per_key=10, block_size=4096)   # LevelDB's defaults
+# phases 5, 6 and 6b load DB_BENCH_ENTRIES of the 10M they loaded until
+# the six policies joined the script (its 1,000 s); their lines say so
+DB_BENCH_ENTRIES, DB_BENCH_FULL = 8_000_000, 10_000_000
 
 
 def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
@@ -1644,6 +1678,7 @@ def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
     run_bytes = run_device_bytes(store)
     out = dict(
         phase="db_bench", entries=int(keys.size), deleted=int(deleted.size),
+        reduced=reduced_entries(n_entries, DB_BENCH_FULL),
         value_bytes=100, key_bytes=cfg.key_bytes,
         config=dataclasses.asdict(cfg), load_timed_entries=starts[-1],
         load_s=load_s, load_entries_per_s=starts[-1] / load_s,
@@ -1728,7 +1763,7 @@ def zipf_items(rng, n_items: int, n: int, theta: float = 0.99):
 
 
 def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
-               n_ops: int = 1 << 20, batch: int = 4096,
+               n_ops: int = 1 << 19, batch: int = 4096,
                interval_ops: int = 16_384):
     """YCSB workload A (50% reads, 50% updates, zipfian) over a 1M-key
     load on a tuned async store (phase 6's knobs, a Telemetry and an
@@ -1837,7 +1872,7 @@ def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
 
 
 def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
-    """Phase 5b, on phase 5's store (10M entries, 5 levels): range views
+    """Phase 5b, on phase 5's store (its load, 5 levels at 10M): range views
     (full and incremental build; phase 5's seeks and scans through the
     view, every answer equal to phase 5's), telemetry (the store's own
     multi_get percentiles beside the host clock; keys/s with it on and
@@ -2277,6 +2312,7 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
     worker = "autumn-compaction-0"
     out = dict(
         phase="durability", entries=int(keys.size), deleted=int(deleted.size),
+        reduced=reduced_entries(n_entries, DB_BENCH_FULL),
         config={k: v for k, v in dataclasses.asdict(cfg).items()
                 if k in ("async_compaction", "compaction_workers",
                          "cache_bytes", "cache_policy", "pin_l0_bytes",
@@ -2556,6 +2592,7 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
                        for a, g, p, w, w5 in differ[:10]])
     out = dict(
         part="a_dbbench", shards=n, entries=int(keys.size),
+        reduced=reduced_entries(n_entries, DB_BENCH_FULL),
         config={k: v for k, v in dataclasses.asdict(cfg).items()
                 if k in ("shards", "async_compaction", "compaction_workers",
                          "memtable_bytes", "block_size", "bits_per_key",
@@ -4041,15 +4078,243 @@ def examples_phase(torch, ops, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+# The paper's comparison (the reference's benchmarks/complexity_check.py:
+# 23-24): Leveling, Tiering, Lazy Leveling and QLSM-Bush at c = 1, and
+# Garnering at c = 0.8 and 0.5, all at T = 2.
+POLICY_SET = (("leveling", 1.0), ("tiering", 1.0), ("lazy-leveling", 1.0),
+              ("qlsm-bush", 1.0), ("garnering", 0.8), ("garnering", 0.5))
+POLICY_EQUIV_ENTRIES = 20_000
+# the reference comparison's geometry: at least 4 levels, many compactions
+POLICY_EQUIV_GEOMETRY = dict(T=2.0, memtable_bytes=16 << 10,
+                             base_level_bytes=64 << 10, bits_per_key=10,
+                             bloom_allocation="monkey")
+POLICY_ENTRIES = 1_000_000      # of DB_BENCH_FULL, for the script's 1,000 s
+POLICY_SCANS = 2_000
+
+
+def policy_label(policy: str, c: float) -> str:
+    return policy if policy != "garnering" else f"garnering-c{c}"
+
+
+def launch_delta(ops, before: dict) -> dict:
+    now = ops.launch_counts()
+    return {k: now[k] - before[k] for k in STORE_KERNELS}
+
+
+def policy_equivalence_part(torch, rt, ops, seed: int, i: int, policy: str,
+                            c: float) -> dict:
+    """Phase 4's op sequence at 20,000 entries on a CUDA and a CPU store of
+    one policy, at the reference comparison's geometry: the same tree,
+    IOStats and answers, and every store kernel launched."""
+    t = time.perf_counter()
+    before = ops.launch_counts()
+    cfg = rt.LSMConfig(policy=policy, c=c, **POLICY_EQUIV_GEOMETRY)
+    fields, stores, snaps = equivalence_run(
+        torch, rt, np.random.default_rng([seed, 13, i]),
+        POLICY_EQUIV_ENTRIES, cfg)
+    for s, snap in zip(stores, snaps):
+        s.release_snapshot(snap)
+    launches = launch_delta(ops, before)
+    out = dict(phase="policies", part="policy_equivalence",
+               policy=policy_label(policy, c), config=dataclasses.asdict(cfg),
+               entries=POLICY_EQUIV_ENTRIES, **fields,
+               pins_after_release=[s.manifest.total_pin_refs()
+                                   for s in stores],
+               launches=launches, s=time.perf_counter() - t)
+    emit(out)
+    bad = [name for name in EQUIVALENCE_GATES if not out[name]]
+    if out["pins_after_release"] != [0, 0]:
+        bad.append("pins left after the release")
+    bad += [f"{k} not launched" for k, n in launches.items() if n == 0]
+    if bad:
+        raise AssertionError(f"policy_equivalence {out['policy']}: {bad}")
+    return out
+
+
+def absent_keys(rng, sorted_keys, n: int) -> np.ndarray:
+    """``n`` uniform u64 keys that the store never held."""
+    q = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    at = np.minimum(np.searchsorted(sorted_keys, q), sorted_keys.size - 1)
+    if (sorted_keys[at] == q).any():
+        raise AssertionError("absent key drawn from the written set")
+    return q
+
+
+def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
+                        n_entries: int) -> dict:
+    """Phase 5's db_bench (LevelDB's defaults) under one policy at
+    ``n_entries``: fillrandom, 1% deleted and a flush, then a wave of live
+    and deleted keys, a wave of absent keys and short scans, every answer
+    checked against the numpy oracle; levels, runs, their device bytes,
+    write amplification, delayed compactions and the read costs."""
+    t_part = time.perf_counter()
+    before = ops.launch_counts()
+    cfg = rt.LSMConfig(**{**DB_BENCH, "policy": policy, "c": c,
+                          "bloom_allocation": "monkey"})
+    store = rt.LSMStore(cfg)   # cuda:0
+    torch.cuda.reset_peak_memory_stats()
+    keys, deleted = fill_workload(seed, n_entries)
+    spent = [0.0]
+    apply = store._apply
+
+    def timed_apply(task):
+        t = time.perf_counter()
+        out = apply(task)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return out
+
+    store._apply = timed_apply
+    t0 = time.perf_counter()
+    for i in range(0, keys.size, 500_000):
+        kc = keys[i:i + 500_000]
+        store.put_batch(kc.tolist(), user_values(kc))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    store.delete_batch(deleted.tolist())
+    store.flush()
+    torch.cuda.synchronize()
+    del store._apply, apply           # no reference cycle keeps it alive
+    load_stats = store.stats
+    sorted_keys = np.sort(keys)
+    live = np.setdiff1d(keys, deleted)
+    rng = np.random.default_rng([seed, 13])
+    wave = 65_536
+    present = np.concatenate([rng.choice(live, wave // 2),
+                              rng.choice(deleted, wave // 2)])
+    want_present = user_values(present[:wave // 2]) + [None] * (wave // 2)
+    absent = absent_keys(rng, sorted_keys, wave)
+    t = time.perf_counter()
+    got_present = store.multi_get(present.tolist())
+    present_s = time.perf_counter() - t
+    s0 = store.stats
+    t = time.perf_counter()
+    got_absent = store.multi_get(absent.tolist())
+    absent_s = time.perf_counter() - t
+    zero = store.stats.delta(s0)
+    wrong = dict(present=sum(g != w for g, w in zip(got_present,
+                                                   want_present)),
+                 absent=sum(g is not None for g in got_absent))
+    starts = np.concatenate([rng.choice(live, POLICY_SCANS // 2),
+                             rng.integers(0, 2**64 - 1, POLICY_SCANS // 2,
+                                          dtype=np.uint64)])
+    s1 = store.stats
+    t = time.perf_counter()
+    got_scans = [store.scan(int(a), 10) for a in starts.tolist()]
+    scan_s = time.perf_counter() - t
+    scans = store.stats.delta(s1)
+    at = np.searchsorted(live, starts)
+    wrong["scans"] = 0
+    for a, got in zip(at.tolist(), got_scans):
+        want_keys = live[a:a + 10]
+        wrong["scans"] += got != list(zip(want_keys.tolist(),
+                                          user_values(want_keys)))
+    total = store.total_entries
+    base = cfg.base_level_bytes
+    out = dict(
+        phase="policies", part="policy_dbbench",
+        policy=policy_label(policy, c), config=dataclasses.asdict(cfg),
+        entries=int(keys.size), deleted=int(deleted.size), value_bytes=100,
+        reduced=reduced_entries(n_entries, DB_BENCH_FULL),
+        load_s=load_s, load_entries_per_s=keys.size / load_s,
+        compaction_s=spent[0],
+        levels_in_use=store.num_levels_in_use,
+        eq6_predicted_levels=store.policy.predicted_levels(
+            total * rt.core.types.entry_bytes(100), base)
+        if policy == "garnering" else None,
+        total_entries=total,
+        runs=sum(len(lvl) for lvl in store._levels),
+        level_summary=store.level_summary(),
+        run_bytes_on_device=run_device_bytes(store),
+        write_amp=load_stats.write_amplification(),
+        delayed_last_level_compactions=store.stats
+        .delayed_last_level_compactions,
+        compactions=load_stats.compactions,
+        absent_wave=dict(keys=wave,
+                         runs_touched_per_key=zero.runs_touched_point / wave,
+                         blocks_read_per_key=zero.blocks_read / wave),
+        scans=dict(count=int(starts.size), length=10,
+                   runs_touched_per_scan=scans.runs_touched_range
+                   / starts.size,
+                   blocks_read_per_scan=scans.blocks_read / starts.size,
+                   scans_per_s=starts.size / scan_s),
+        multi_get_keys_per_s=2 * wave / (present_s + absent_s),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        wrong=wrong, launches=launch_delta(ops, before))
+    out["s"] = time.perf_counter() - t_part
+    emit(out)
+    del store, got_present, got_absent, got_scans
+    torch.cuda.empty_cache()
+    bad = [f"{n} wrong {k}" for k, n in wrong.items() if n]
+    bad += [f"{k} not launched" for k, n in out["launches"].items() if n == 0]
+    if bad:
+        raise AssertionError(f"policy_dbbench {out['policy']}: {bad}")
+    return out
+
+
+def policies_phase(torch, rt, ops, seed: int) -> dict:
+    """Phase 13: the paper's six policies on the card.  (a) each one's
+    CUDA store against its CPU store on phase 4's op sequence; (b) each
+    one's db_bench at LevelDB's geometry; (c) the orderings that
+    tests/test_system.py asserts, as found at this size (findings, not
+    gates), and the store kernels' launches."""
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    for i, (policy, c) in enumerate(POLICY_SET):
+        policy_equivalence_part(torch, rt, ops, seed, i, policy, c)
+        torch.cuda.empty_cache()
+    runs = {}
+    for policy, c in POLICY_SET:
+        runs[policy_label(policy, c)] = policy_dbbench_part(
+            torch, rt, ops, seed, policy, c, POLICY_ENTRIES)
+    lv, g8, g5 = (runs[k] for k in ("leveling", "garnering-c0.8",
+                                    "garnering-c0.5"))
+    tier = runs["tiering"]
+    orderings = {
+        "garnering_0.8_fewer_levels_than_leveling":
+            g8["levels_in_use"] < lv["levels_in_use"],
+        "garnering_0.5_levels_at_most_garnering_0.8":
+            g5["levels_in_use"] <= g8["levels_in_use"],
+        "zero_result_runs_touched_garnering_0.5_at_most_leveling":
+            g5["absent_wave"]["runs_touched_per_key"]
+            <= lv["absent_wave"]["runs_touched_per_key"],
+        "range_runs_touched_garnering_0.5_at_most_leveling":
+            g5["scans"]["runs_touched_per_scan"]
+            <= lv["scans"]["runs_touched_per_scan"],
+        "write_amp_tiering_below_leveling":
+            tier["write_amp"] < lv["write_amp"],
+        "write_amp_garnering_0.8_below_1.2x_leveling":
+            g8["write_amp"] < 1.2 * lv["write_amp"],
+        "delayed_compactions_garnering_0.8_above_0":
+            g8["delayed_last_level_compactions"] > 0,
+        "delayed_compactions_leveling_0":
+            lv["delayed_last_level_compactions"] == 0,
+        "garnering_0.8_levels_within_2.5_of_eq6":
+            abs(g8["levels_in_use"] - g8["eq6_predicted_levels"]) <= 2.5,
+    }
+    launches = ops.launch_counts()
+    out = dict(phase="policies", part="summary",
+               entries=POLICY_ENTRIES, orderings=orderings,
+               levels={k: r["levels_in_use"] for k, r in runs.items()},
+               write_amp={k: r["write_amp"] for k, r in runs.items()},
+               compaction_s={k: r["compaction_s"] for k, r in runs.items()},
+               launches={k: launches[k] for k in STORE_KERNELS},
+               s=time.perf_counter() - t)
+    emit(out)
+    return out
+
+
 PHASES = ("kernels", "attention", "equivalence", "db_bench", "subsystems",
           "durability", "sharded", "serve", "families", "train", "mesh",
-          "dryrun", "examples")
+          "dryrun", "examples", "policies")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--entries", type=int, default=10_000_000,
-                    help="phase-5 and phase-6 entry count (10M by default)")
+    ap.add_argument("--entries", type=int, default=DB_BENCH_ENTRIES,
+                    help="phase-5, 6 and 6b entry count (8M by default, "
+                         "of db_bench's 10M)")
     ap.add_argument("--equiv-entries", type=int, default=EQUIV_ENTRIES,
                     help="phase-4 entry count")
     ap.add_argument("--seed", type=int, default=0)
@@ -4178,6 +4443,9 @@ def main() -> int:
                                          args.src)["launches"]
     if "examples" in phases:
         by_path["examples"] = examples_phase(torch, ops, dev)["launches"]
+    if "policies" in phases:
+        by_path["policies"] = policies_phase(torch, rt, ops,
+                                             args.seed)["launches"]
     if list(phases) != list(PHASES):
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()

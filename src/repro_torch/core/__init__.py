@@ -13,7 +13,9 @@ Public API:
     RangeView, build_range_view   — cross-run range views on the device
     make_policy, Garnering, ...   — merge policies (paper §2.3/§3.1)
     BloomFilter, allocate_fprs    — device filters + Monkey/Autumn allocation
+                                    (Eq. 7-10) and the read-cost model
     SortedRun, build_run, merge_runs — device runs and compaction
+                                    (merge_runs_scalar: its plain oracle)
     IOStats, StatsHub             — block-I/O cost accounting
     Telemetry, LatencyHistogram,
     EventTrace                    — latency histograms + event trace
@@ -25,7 +27,8 @@ Public API:
     store_from_columns, columns_of — state carried to and from numpy columns
 """
 from .bloom import (BloomFilter, allocate_fprs, bits_for_fpr,
-                    bloom_geometry, theoretical_fpr)
+                    bloom_geometry, garnering_theoretical_fprs,
+                    theoretical_fpr, zero_result_read_cost)
 from .cache import BlockCache, BlockCacheView, PinnedLevelManager
 from .convert import columns_of, store_from_columns
 from .engine import LSMConfig, LSMStore
@@ -37,7 +40,8 @@ from .manifest import Manifest, RunStorage, Version
 from .memtable import ImmutableMemtable, Memtable, WriteAheadLog
 from .policy import (POLICIES, CompactionTask, Garnering, LazyLeveling,
                      Leveling, MergePolicy, QLSMBush, Tiering, make_policy)
-from .run import SortedRun, build_run, levels_bit_equal, merge_runs
+from .run import (SortedRun, build_run, levels_bit_equal, merge_runs,
+                  merge_runs_scalar)
 from .scheduler import CompactionScheduler
 from .sharded import (ShardedLSMStore, ShardedSnapshot, make_store,
                       uniform_splitters)
@@ -53,13 +57,15 @@ __all__ = [
     "LSMStore", "LSMConfig", "make_store", "ShardedLSMStore",
     "ShardedSnapshot", "uniform_splitters", "MergingIterator", "IOStats",
     "StatsHub", "BloomFilter", "allocate_fprs", "bits_for_fpr",
-    "bloom_geometry", "theoretical_fpr", "Manifest", "RunStorage", "Version",
+    "bloom_geometry", "theoretical_fpr", "garnering_theoretical_fprs",
+    "zero_result_read_cost", "Manifest", "RunStorage", "Version",
     "Memtable", "WriteAheadLog", "ImmutableMemtable", "BlockCache",
     "BlockCacheView",
     "PinnedLevelManager", "CompactionScheduler", "POLICIES",
     "CompactionTask", "Garnering", "LazyLeveling", "Leveling", "MergePolicy",
     "QLSMBush", "Tiering", "make_policy", "SortedRun", "build_run",
-    "merge_runs", "levels_bit_equal", "store_from_columns", "columns_of",
+    "merge_runs", "merge_runs_scalar", "levels_bit_equal",
+    "store_from_columns", "columns_of",
     "RangeView", "build_range_view",
     "Telemetry", "LatencyHistogram", "EventTrace", "TraceEvent",
     "TelemetrySnapshot", "TelemetryWindow",

@@ -8,9 +8,11 @@ plain versions on the CPU), with the reference's geometry
 and hash family, so its bits equal ``repro.core.bloom.build_bits`` word for
 word.
 
-``allocate_fprs``, ``bits_for_fpr`` and ``theoretical_fpr`` are the
-reference's host math, copied: minimize the zero-result point-read cost
-R = sum_i p_i subject to the total filter memory budget (paper Eq. 7-10).
+``allocate_fprs``, ``bits_for_fpr``, ``theoretical_fpr`` and the analytic
+read-cost model (``fprs_to_bits_per_key``, ``garnering_theoretical_fprs``,
+``zero_result_read_cost``) are the reference's host math, copied: minimize
+the zero-result point-read cost R = sum_i p_i subject to the total filter
+memory budget (paper Eq. 7-10).
 """
 from __future__ import annotations
 
@@ -45,12 +47,13 @@ class BloomFilter:
     ``bits_per_key``.
     """
 
-    __slots__ = ("m_bits", "k", "bits")
+    __slots__ = ("m_bits", "k", "bits", "n_keys")
 
     def __init__(self, keys: torch.Tensor, bits_per_key: float,
                  geometry: Optional[Tuple[int, int]] = None):
+        self.n_keys = int(keys.numel())
         m, k = geometry if geometry is not None \
-            else bloom_geometry(int(keys.numel()), bits_per_key)
+            else bloom_geometry(self.n_keys, bits_per_key)
         if m == 0 or k == 0:
             m, k = 0, 0
             self.bits = torch.zeros(0, dtype=torch.int32, device=keys.device)
@@ -66,6 +69,15 @@ class BloomFilter:
     def bits_numpy(self) -> np.ndarray:
         """The words as the reference's uint32 numpy array."""
         return self.bits.cpu().numpy().view(np.uint32)
+
+    @property
+    def memory_bits(self) -> int:
+        return self.m_bits
+
+    def expected_fpr(self) -> float:
+        if self.m_bits == 0:
+            return 1.0
+        return theoretical_fpr(self.m_bits / max(self.n_keys, 1))
 
 
 def theoretical_fpr(bits_per_key: float) -> float:
@@ -120,3 +132,21 @@ def allocate_fprs(level_sizes: Sequence[int], total_bits: float) -> np.ndarray:
                 saturated[idx] = True
                 break
     return fprs
+
+
+def fprs_to_bits_per_key(fprs: Sequence[float]) -> np.ndarray:
+    return np.asarray([bits_for_fpr(p) for p in fprs])
+
+
+def garnering_theoretical_fprs(L: int, T: float, c: float, p_last: float = 1.0
+                               ) -> np.ndarray:
+    """Closed-form Eq. 9: p_{L-i} = p_L * c^{i(i-1)/2} / T^i (1-indexed levels)."""
+    out = np.empty(L)
+    for i in range(L):  # i = distance from last level
+        out[L - 1 - i] = p_last * (c ** (i * (i - 1) / 2)) / (T ** i)
+    return np.minimum(out, 1.0)
+
+
+def zero_result_read_cost(fprs: Sequence[float]) -> float:
+    """Eq. 7: expected blocks read by a point query for an absent key."""
+    return float(np.sum(fprs))

@@ -568,3 +568,36 @@ def merge_runs(runs: Sequence[SortedRun], bits_per_key: float,
                     bits_per_key=bits_per_key, block_size=block_size,
                     key_bytes=key_bytes)
     return _account_merge_output(out, stats)
+
+
+def merge_runs_scalar(runs: Sequence[SortedRun], bits_per_key: float,
+                      stats: IOStats, drop_tombstones: bool = False,
+                      block_size: int = BLOCK_SIZE,
+                      key_bytes: int = KEY_BYTES) -> SortedRun:
+    """The plain compaction merge, kept as the oracle of :func:`merge_runs`
+    (the reference's ``merge_runs_scalar``): concatenate every run's
+    columns (values padded to the widest), then sort and deduplicate from
+    scratch with :func:`build_run`, ignoring that the inputs are sorted.
+    The merge takes no kernel; the output's filter is built as every run's
+    is.  No store path calls it.  Identical output and IOStats to
+    ``merge_runs``; the result lies on the inputs' device (an empty run on
+    the CPU when ``runs`` is empty).
+    """
+    if not runs:
+        empty = torch.zeros(0, dtype=torch.int64)
+        return build_run(empty, empty, torch.zeros(0, dtype=torch.int32),
+                         torch.zeros((0, 0), dtype=torch.uint8),
+                         bits_per_key, block_size=block_size,
+                         key_bytes=key_bytes)
+    vmax = max(r.vals.shape[1] for r in runs)
+    for r in runs:
+        stats.blocks_read += r.n_blocks
+    out = build_run(torch.cat([r.keys for r in runs]),
+                    torch.cat([r.seqs for r in runs]),
+                    torch.cat([r.vlens for r in runs]),
+                    torch.cat([F.pad(r.vals, (0, vmax - r.vals.shape[1]))
+                               for r in runs]),
+                    bits_per_key=bits_per_key,
+                    drop_tombstones=drop_tombstones, block_size=block_size,
+                    key_bytes=key_bytes)
+    return _account_merge_output(out, stats)

@@ -174,6 +174,15 @@ class StatsHub:
         return self.merged().delta(prev)
 
 
+def entry_bytes(val_len: int, key_bytes: int = KEY_BYTES) -> int:
+    """Physical size of one entry (tombstones carry only the key)."""
+    return key_bytes + max(val_len, 0)
+
+
+def blocks_for_bytes(nbytes: int, block_size: int = BLOCK_SIZE) -> int:
+    return max(1, -(-nbytes // block_size)) if nbytes > 0 else 0
+
+
 def splitmix64(x: np.ndarray) -> np.ndarray:
     """Vectorized splitmix64 (the reference's ``types.splitmix64``)."""
     x = x.astype(np.uint64, copy=True)

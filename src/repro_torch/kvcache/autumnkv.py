@@ -228,6 +228,13 @@ class AutumnKVCache:
             self.codec.write_page(cache, blob, i, prompt_len, self.page)
         return cache
 
+    def lookup(self, tokens: np.ndarray,
+               template: Pytree) -> Optional[Pytree]:
+        """Full-prompt hit: a copy of ``template`` holding the prompt's
+        stored cache, else None (a one-prompt :meth:`lookup_batch`, with
+        the reference's hit and miss counts)."""
+        return self.lookup_batch([tokens], template)[0]
+
     def lookup_batch(self, prompts: List[np.ndarray],
                      template: Pytree) -> List[Optional[Pytree]]:
         """Full-prompt hits of a serving wave: for each prompt, a copy of

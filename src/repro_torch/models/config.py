@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 LayerKind = str
+ATTN_KINDS = ("attn", "lattn", "xattn")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -125,11 +126,24 @@ class ModelConfig:
                              f"{len(self.layer_pattern)} != {self.n_layers}")
 
     @property
+    def has_decoder_attn_cache(self) -> bool:
+        return any(k in ATTN_KINDS for k in self.layer_pattern)
+
+    @property
     def vocab_padded(self) -> int:
         """Vocab padded for clean TP sharding (Megatron's
         make-vocab-divisible); pad logits are masked to -inf in the loss."""
         pad = self.pad_vocab_to
         return -(-self.vocab // pad) * pad
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS = 6*N*D roofline)."""
+        from .params import count_params  # local import to avoid cycle
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from .params import count_params
+        return count_params(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,3 +175,10 @@ def find_stages(pattern: Sequence[LayerKind], max_period: int = 8) -> List[Stage
             best = Stage(block, reps)
     covered = best.repeat * len(best.block)
     return [best] + find_stages(pattern[covered:], max_period)
+
+
+def expand_stages(stages: Sequence[Stage]) -> Tuple[LayerKind, ...]:
+    out: List[LayerKind] = []
+    for s in stages:
+        out.extend(s.block * s.repeat)
+    return tuple(out)

@@ -3,10 +3,10 @@ caches.
 
 Counterpart of ``repro.models.model`` (``embed_tokens``, ``unembed``,
 ``sinusoid_positions``, ``encoder_forward``, ``prefill``, ``decode_step``,
-``cache_table``, ``init_cache``, ``cache_logical_specs``) for every layer
-kind.  The reference scans each stage with ``lax.scan``; PyTorch runs
-eagerly, so the layers are a Python loop over views into the stacked
-parameters.
+``cache_table``, ``init_cache``, ``abstract_cache``,
+``cache_logical_specs``) for every layer kind.  The reference scans each
+stage with ``lax.scan``; PyTorch runs eagerly, so the layers are a Python
+loop over views into the stacked parameters.
 
 The parameter and cache trees keep the reference's layout, with a leading
 layers axis per stage:
@@ -121,6 +121,16 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, device=None,
     return tree_map(lambda s: torch.zeros(shard.local_shape(s.shape,
                                                             s.logical),
                                           dtype=s.dtype, device=device),
+                    cache_table(cfg, B, s_max), is_leaf=_is_cache_spec)
+
+
+def abstract_cache(cfg: ModelConfig, B: int, s_max: int,
+                   pos: Optional[int] = None) -> Pytree:
+    """The cache table's leaves as tensors on the ``meta`` device, of the
+    cache's shapes and dtypes (the reference's ``jax.ShapeDtypeStruct``
+    leaves); ``pos`` is unused, as in the reference."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"),
                     cache_table(cfg, B, s_max), is_leaf=_is_cache_spec)
 
 
