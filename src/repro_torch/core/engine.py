@@ -38,8 +38,9 @@ The reference's store subsystems ride on the same tree:
   ``manifest_fsync``, ``block_read`` and the two migration sites) and
   dirties ``crash()``; ``paranoid_checks`` verifies every block a point
   read or a seek touches, a point-read batch's blocks in one device pass.
-* ``telemetry`` records per-op latency histograms and lifecycle events
-  (``core.telemetry``); it adds no device synchronization.
+* ``telemetry`` records per-op latency histograms and lifecycle events,
+  and cuts each call into the phases of ``core.telemetry.PHASES``; it
+  adds no device synchronization.
 * ``tuner`` (an ``OnlineTuner``) hill-climbs ``c``, ``T``, the cache/pin
   split and ``slowdown_trigger`` from the telemetry, applying changes only
   at compaction-chain or quiesce boundaries (``apply_tuning``).
@@ -73,7 +74,7 @@ from .memtable import ImmutableMemtable, Memtable, WriteAheadLog
 from .policy import CompactionTask, MergePolicy, make_policy
 from .run import SortedRun, build_run, merge_runs, seek_batch
 from .scheduler import CompactJob, CompactionScheduler, FlushJob
-from .telemetry import Telemetry
+from .telemetry import ACTIVE, Telemetry
 from .tuner import OnlineTuner, TunerStep
 from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, TOMBSTONE_LEN, IOStats,
                     StatsHub)
@@ -182,6 +183,65 @@ def _first_live_mem_key(mems: Sequence[Memtable], key: int
     return best
 
 
+class _Off:
+    """A store call's context with telemetry off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def done(self, **fields) -> None:
+        pass
+
+
+_OFF = _Off()
+# calls whose CorruptionError the trace reports, as the reference's do
+_REPORTS_CORRUPTION = ("get", "multi_get")
+
+
+class _Call:
+    """A store call with telemetry on: on entry it opens ``op`` at its
+    phase ``first`` (and emits ``<event>_start`` with ``fields``); on exit,
+    however the call ends, it closes the phases.  A call that returns
+    records its latency in the ``op`` histogram and emits ``<event>_end``
+    with the fields given to :meth:`done`, ``t0`` and ``dur_ns``."""
+
+    __slots__ = ("tel", "op", "first", "event", "fields", "ph", "t0", "tok")
+
+    def __init__(self, tel: Telemetry, op: str, first: str,
+                 event: Optional[str], fields: dict):
+        self.tel, self.op, self.first = tel, op, first
+        self.event, self.fields = event, fields
+
+    def __enter__(self):
+        self.ph, self.t0 = self.tel.enter(self.op, self.first)
+        if self.event is not None:
+            self.tok = self.tel.emit(self.event + "_start", **self.fields)
+        return self
+
+    def done(self, **fields) -> None:
+        """The fields of the ``<event>_end`` event."""
+        self.fields = fields
+
+    def __exit__(self, exc_type, exc, tb):
+        tel = self.tel
+        dur = self.ph.exit() - self.t0
+        if exc_type is None:
+            tel.record(self.op, dur)
+            if self.event is not None:
+                tel.emit(self.event + "_end", token=self.tok, **self.fields,
+                         t0=self.t0, dur_ns=dur)
+        elif issubclass(exc_type, CorruptionError) \
+                and self.op in _REPORTS_CORRUPTION:
+            tel.emit("corruption", run_id=exc.run_id, block_id=exc.block_id,
+                     where=self.op)
+        return False
+
+
 def _min_key(a: Optional[int], b: Optional[int]) -> Optional[int]:
     return b if a is None else a if b is None else min(a, b)
 
@@ -275,16 +335,17 @@ class LSMStore:
             "reads keep serving — crash()+recover() to restore writes"
         ) from self._degraded
 
-    def _span(self, op: str, fn, *args):
-        """``fn(*args)``, its latency recorded in the ``op`` histogram when
-        telemetry is on (one ``is None`` test when it is off)."""
+    def _call(self, op: str, first: str, event: Optional[str] = None,
+              **fields):
+        """The context of one instrumented call (``with``): its latency in
+        the ``op`` histogram, its phases from ``first`` on, and for an
+        ``event`` its start and end events (see :class:`_Call`); with
+        telemetry off, one ``is None`` test and a context that does
+        nothing."""
         tel = self.config.telemetry
         if tel is None:
-            return fn(*args)
-        t0 = time.perf_counter_ns()
-        out = fn(*args)
-        tel.record(op, time.perf_counter_ns() - t0)
-        return out
+            return _OFF
+        return _Call(tel, op, first, event, fields)
 
     def _wal_fsync(self, st: IOStats) -> None:
         """fsync the active WAL: the one helper every durability point
@@ -343,12 +404,14 @@ class LSMStore:
 
     # ------------------------------------------------------------- writes
     def put(self, key: int, value: bytes):
-        self._span("put", self._write, key, value)
+        with self._call("put", "wal_append"):
+            self._write(key, value)
         if self._tuner is not None:
             self._maybe_tune(1)
 
     def delete(self, key: int):
-        self._span("put", self._write, key, None)
+        with self._call("put", "wal_append"):
+            self._write(key, None)
         if self._tuner is not None:
             self._maybe_tune(1)
 
@@ -365,6 +428,9 @@ class LSMStore:
                         value or b"", st)
         if self.config.wal_fsync_every_write:
             self._wal_fsync(st)
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("memtable_insert")
         self.memtable.put(int(key), self._seq, value)
         if self.memtable.is_full():
             self._on_memtable_full()
@@ -378,7 +444,8 @@ class LSMStore:
         """
         if isinstance(values, (bytes, bytearray)):
             values = [bytes(values)] * len(keys)
-        self._span("put_batch", self._write_batch, zip(keys, values))
+        with self._call("put_batch", "columns"):
+            self._write_batch(zip(keys, values))
         if self._tuner is not None:
             self._maybe_tune(len(keys))
 
@@ -387,7 +454,8 @@ class LSMStore:
         self.write_batch((k, None) for k in keys)
 
     def write_batch(self, ops_: Iterable[Tuple[int, Optional[bytes]]]) -> None:
-        self._span("write_batch", self._write_batch, ops_)
+        with self._call("write_batch", "columns"):
+            self._write_batch(ops_)
         if self._tuner is not None:
             self._maybe_tune(1)
 
@@ -405,6 +473,7 @@ class LSMStore:
         ``wal_fsync_every_write`` the batch fsyncs once per chunk (group
         commit), the reference's one accounting difference from the loop.
         """
+        ph = ACTIVE.phases
         pairs = list(ops_)
         n = len(pairs)
         if n == 0:
@@ -424,6 +493,8 @@ class LSMStore:
         cum = np.cumsum(vlens + kb)
         i = 0
         while i < n:
+            if ph is not None:
+                ph.next("columns")
             room = self.memtable.capacity_bytes - self.memtable.size_bytes
             base = int(cum[i - 1]) if i else 0
             j = max(i + 1,
@@ -433,11 +504,15 @@ class LSMStore:
                 faults.check("wal_append")  # per chunk, before mutation
             first_seq = self._seq + 1
             self._seq += j - i
+            if ph is not None:
+                ph.next("wal_append")
             self.wal.append_batch_cols(
                 chunk_vals, keys_arr[i:j], ops_arr[i:j], vlens[i:j],
                 first_seq, st)
             if self.config.wal_fsync_every_write:
                 self._wal_fsync(st)
+            if ph is not None:
+                ph.next("memtable_insert")
             self.memtable.put_batch(keys_l[i:j], chunk_vals, first_seq,
                                     added=int(cum[j - 1] - base))
             if self.memtable.is_full():
@@ -474,30 +549,28 @@ class LSMStore:
         if len(self._levels[0]) >= self.config.l0_stop_writes_trigger:
             st.write_stalls += 1
             self._compact_until_quiet()
-        tel = self.config.telemetry
-        t0 = tok = 0
-        if tel is not None:
-            t0 = time.perf_counter_ns()
-            tok = tel.emit("flush_start", entries=len(self.memtable))
-        self._wal_fsync(st)
-        f = self.config.faults
-        if f is not None:
-            f.check("flush_write")
-        run = self.memtable.to_run(self._bits_for_level(0), st, self.device)
-        if len(run):
-            levels = [list(lvl) for lvl in self._levels]
-            levels[0].append(run)  # newest last
-            self._levels = levels
-            self._commit()
-        # released only after the manifest commit, as the reference does: a
-        # failed manifest fsync leaves the records in the fsynced WAL
-        self.memtable.clear()
-        self.wal.truncate()
-        if tel is not None:
-            dur = time.perf_counter_ns() - t0
-            tel.record("flush", dur)
-            tel.emit("flush_end", token=tok, entries=len(run),
-                     t0=t0, dur_ns=dur)
+        with self._call("flush", "wal_fsync", "flush",
+                        entries=len(self.memtable)) as call:
+            self._wal_fsync(st)
+            f = self.config.faults
+            if f is not None:
+                f.check("flush_write")
+            run = self.memtable.to_run(self._bits_for_level(0), st,
+                                       self.device)
+            ph = ACTIVE.phases
+            if ph is not None:
+                ph.next("install")
+            if len(run):
+                levels = [list(lvl) for lvl in self._levels]
+                levels[0].append(run)  # newest last
+                self._levels = levels
+                self._commit()
+            # released only after the manifest commit, as the reference
+            # does: a failed manifest fsync leaves the records in the
+            # fsynced WAL
+            self.memtable.clear()
+            self.wal.truncate()
+            call.done(entries=len(run))
         self._compact_until_quiet()
 
     # ------------------------------------------------- async rotation path
@@ -784,26 +857,23 @@ class LSMStore:
         f = self.config.faults
         if f is not None:
             f.check("flush_write")
-        tel = self.config.telemetry
-        t0 = tok = 0
-        if tel is not None:
-            t0 = time.perf_counter_ns()
-            tok = tel.emit("flush_start", entries=len(imm.memtable), bg=1)
-        run = imm.memtable.to_run(self._bits_for_level(0), st, self.device)
-        if len(run):
-            levels = [list(lvl) for lvl in self._levels]
-            levels[0].append(run)  # newest last
-            self._levels = levels
-            self._commit()
-        with sched.lock:
-            self._imm = [m for m in self._imm if m is not imm]
-            sched.lock.notify_all()     # wake write-pressure waiters
-        st.bg_flushes += 1
-        if tel is not None:
-            dur = time.perf_counter_ns() - t0
-            tel.record("flush", dur)
-            tel.emit("flush_end", token=tok, entries=len(run), bg=1,
-                     t0=t0, dur_ns=dur)
+        with self._call("flush", "columns", "flush",
+                        entries=len(imm.memtable), bg=1) as call:
+            run = imm.memtable.to_run(self._bits_for_level(0), st,
+                                      self.device)
+            ph = ACTIVE.phases
+            if ph is not None:
+                ph.next("install")
+            if len(run):
+                levels = [list(lvl) for lvl in self._levels]
+                levels[0].append(run)  # newest last
+                self._levels = levels
+                self._commit()
+            with sched.lock:
+                self._imm = [m for m in self._imm if m is not imm]
+                sched.lock.notify_all()     # wake write-pressure waiters
+            st.bg_flushes += 1
+            call.done(entries=len(run), bg=1)
         return CompactJob()
 
     def _bg_compact_one(self) -> Optional[CompactionTask]:
@@ -866,35 +936,33 @@ class LSMStore:
         if not task.matches(srcs):
             return False
         dsts = levels[task.dst_level] if task.include_dst else []
-        tel = self.config.telemetry
-        t0 = tok = 0
-        if tel is not None:
-            t0 = time.perf_counter_ns()
-            tok = tel.emit("compaction_start", src=task.src_level,
-                           dst=task.dst_level, runs=len(srcs) + len(dsts))
-        drop_tombs = task.include_dst \
-            and task.dst_level >= self._deepest_nonempty()
-        f = self.config.faults
-        if f is not None:
-            f.check("compaction_merge")
-        merged = merge_runs(srcs + dsts, self._bits_for_level(task.dst_level),
-                            self._stats.local(), drop_tombstones=drop_tombs,
-                            block_size=self.config.block_size,
-                            key_bytes=self.config.key_bytes)
-        levels[task.src_level] = []
-        if task.include_dst:
-            levels[task.dst_level] = [merged] if len(merged) else []
-        elif len(merged):
-            levels[task.dst_level].append(merged)
-        self._levels = levels
-        self._max_level = max(self._max_level, task.dst_level)
-        self._commit()
-        if tel is not None:
-            dur = time.perf_counter_ns() - t0
-            tel.record("compaction", dur)
-            tel.emit("compaction_end", token=tok, src=task.src_level,
-                     dst=task.dst_level, entries=len(merged),
-                     t0=t0, dur_ns=dur)
+        with self._call("compaction", "merge", "compaction",
+                        src=task.src_level, dst=task.dst_level,
+                        runs=len(srcs) + len(dsts)) as call:
+            drop_tombs = task.include_dst \
+                and task.dst_level >= self._deepest_nonempty()
+            f = self.config.faults
+            if f is not None:
+                f.check("compaction_merge")
+            merged = merge_runs(srcs + dsts,
+                                self._bits_for_level(task.dst_level),
+                                self._stats.local(),
+                                drop_tombstones=drop_tombs,
+                                block_size=self.config.block_size,
+                                key_bytes=self.config.key_bytes)
+            ph = ACTIVE.phases
+            if ph is not None:
+                ph.next("install")
+            levels[task.src_level] = []
+            if task.include_dst:
+                levels[task.dst_level] = [merged] if len(merged) else []
+            elif len(merged):
+                levels[task.dst_level].append(merged)
+            self._levels = levels
+            self._max_level = max(self._max_level, task.dst_level)
+            self._commit()
+            call.done(src=task.src_level, dst=task.dst_level,
+                      entries=len(merged))
         return True
 
     def _deepest_nonempty(self) -> int:
@@ -1020,18 +1088,8 @@ class LSMStore:
             ) -> Optional[bytes]:
         """Point read: the batch path on one key, with the same accounting
         as the reference's scalar ``get`` (and its ``get`` span)."""
-        tel = self.config.telemetry
-        if tel is None:
+        with self._call("get", "memtable_probe"):
             return self._multi_get_impl([key], snapshot)[0]
-        t0 = time.perf_counter_ns()
-        try:
-            out = self._multi_get_impl([key], snapshot)[0]
-        except CorruptionError as e:
-            tel.emit("corruption", run_id=e.run_id, block_id=e.block_id,
-                     where="get")
-            raise
-        tel.record("get", time.perf_counter_ns() - t0)
-        return out
 
     def multi_get(self, keys: Sequence[int],
                   snapshot: Optional[Version] = None
@@ -1045,18 +1103,8 @@ class LSMStore:
         accounting is identical to the reference's.  The ``multi_get`` span
         ends after the last read-back, so it is the device's time too.
         """
-        tel = self.config.telemetry
-        if tel is None:
+        with self._call("multi_get", "memtable_probe"):
             return self._multi_get_impl(keys, snapshot)
-        t0 = time.perf_counter_ns()
-        try:
-            out = self._multi_get_impl(keys, snapshot)
-        except CorruptionError as e:
-            tel.emit("corruption", run_id=e.run_id, block_id=e.block_id,
-                     where="multi_get")
-            raise
-        tel.record("multi_get", time.perf_counter_ns() - t0)
-        return out
 
     def _multi_get_impl(self, keys: Sequence[int],
                         snapshot: Optional[Version] = None
@@ -1088,6 +1136,9 @@ class LSMStore:
                 pending = np.asarray(keep, dtype=np.int64)
         if pending.size == 0:
             return results
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("upload")
         q = ops.keys_to_device(keys_arr[pending], self.device)
         cfg = self.config
         use_bloom = cfg.bits_per_key > 0
@@ -1100,6 +1151,8 @@ class LSMStore:
             if len(run) == 0:
                 continue
             st.runs_touched_point += int(pending.size)
+            if ph is not None:
+                ph.next("run_probe")
             found, values, q = run.point_get_batch(q, st, use_bloom, cache,
                                                    paranoid, faults)
             if found.any():
@@ -1126,7 +1179,8 @@ class LSMStore:
         first entry and drops it when it is a tombstone, and so can return
         a key past a live one).
         """
-        return self._span("seek", self._seek_impl, key, snapshot)
+        with self._call("seek", "probe"):
+            return self._seek_impl(key, snapshot)
 
     def _seek_impl(self, key: int, snapshot: Optional[Version] = None
                    ) -> Optional[int]:
@@ -1182,8 +1236,8 @@ class LSMStore:
         batched value fetch), and a stale one falls back to the iterator
         and counts ``view_fallbacks``: the answer is the same either way.
         """
-        return self._span("scan", self._scan_impl, start_key, count,
-                          snapshot)
+        with self._call("scan", "seek"):
+            return self._scan_impl(start_key, count, snapshot)
 
     def _scan_impl(self, start_key: int, count: int,
                    snapshot: Optional[Version] = None

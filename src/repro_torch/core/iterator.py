@@ -45,6 +45,7 @@ import torch
 from ..kernels import ops
 from .memtable import Entry, Memtable
 from .run import SortedRun, fetch_values, seek_batch
+from .telemetry import ACTIVE
 from .types import KEY_DTYPE, IOStats
 
 _FIRST_DEMAND = 16
@@ -195,7 +196,10 @@ class MergingIterator:
 
     def scan(self, start_key: int, count: int) -> List[Tuple[int, bytes]]:
         """First ``count`` live entries with key >= start_key."""
+        ph = ACTIVE.phases
         self.seek(start_key, expected=count)
+        if ph is not None:
+            ph.next("emit")
         out: List[Tuple[int, bytes]] = []
         while len(out) < count:
             i = self._bi
@@ -204,6 +208,8 @@ class MergingIterator:
             if i >= nb:
                 if self._exhausted or not self._refill():
                     break
+                if ph is not None:
+                    ph.next("emit")
                 continue
             need = count - len(out)
             while i < nb and need:
@@ -254,6 +260,9 @@ class MergingIterator:
         demand past the ``_MAX_WINDOW`` cap when tombstone-driven, so the
         refill count stays O(log deleted).
         """
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("windows")
         demand = self._demand + 2 * self._tomb_carry
         self._demand = min(self._demand * 2, self._max_window)
         w = min(max(2 * demand, _FIRST_DEMAND),
@@ -283,6 +292,8 @@ class MergingIterator:
         if not parts_k:
             self._exhausted = True
             return False
+        if ph is not None:
+            ph.next("merge")
         # 2. clamp windows to the frontier (slice views, no copies)
         if frontier is not None:
             fb = np.uint64(frontier)
@@ -329,6 +340,8 @@ class MergingIterator:
                     vals[t] = items[base + r][2]
             else:
                 wanted.append((sel, self._cursors[sid].run, rows))
+        if ph is not None:
+            ph.next("fetch")
         fetched = fetch_values([(run, rows) for _, run, rows in wanted])
         for (sel, _, _), got in zip(wanted, fetched):
             for t, v in zip(sel.tolist(), got):

@@ -22,6 +22,7 @@ import torch
 from ..kernels import ops
 from .faults import CHUNK, crc32c, crc32c_rows
 from .run import SortedRun, build_run
+from .telemetry import ACTIVE
 from .types import (BLOCK_SIZE, KEY_BYTES, KEY_DTYPE, SEQ_DTYPE,
                     TOMBSTONE_LEN, IOStats)
 
@@ -382,6 +383,9 @@ class Memtable:
         block layout, checksums and the bloom filter are built on the
         device.
         """
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("columns")
         n = len(self._data)
         keys = np.fromiter(self._data.keys(), dtype=KEY_DTYPE, count=n)
         if n:

@@ -36,6 +36,7 @@ from ..kernels import ops
 from ..kernels.merge import FROM_B
 from .bloom import BloomFilter
 from .faults import CorruptionError, crc32c_rows_torch
+from .telemetry import ACTIVE
 from .types import BLOCK_SIZE, KEY_BYTES, TOMBSTONE_LEN, IOStats
 
 _run_ids = itertools.count()
@@ -100,6 +101,9 @@ class SortedRun:
         """Columns must already be sorted and unique (see :func:`build_run`).
         ``bloom_geometry=(m_bits, k)`` rebuilds a filter of a known shape
         instead of deriving it from ``bits_per_key``."""
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("layout")
         self.block_size = block_size
         self.run_id = next(_run_ids)
         self.keys, self.seqs, self.vlens, self.vals = keys, seqs, vlens, vals
@@ -119,12 +123,16 @@ class SortedRun:
             self.fence_keys = keys[torch.searchsorted(
                 self.block_of, torch.arange(self.n_blocks,
                                             device=keys.device))]
+            if ph is not None:
+                ph.next("entry_crc")
             self.block_crcs = self._block_crcs_from(
                 _entry_crcs(keys, seqs, vlens, vals))
         else:
             self.data_bytes = self.n_blocks = self.min_key = self.max_key = 0
             self.fence_keys = keys.new_zeros(0)
             self.block_crcs = keys.new_zeros(0)
+        if ph is not None:
+            ph.next("bloom")
         self.bloom = BloomFilter(keys, bits_per_key, bloom_geometry)
 
     # ------------------------------------------------------------------ size
@@ -308,6 +316,9 @@ class SortedRun:
         n_meta = meta.numel()
         buf = torch.cat([meta.view(torch.uint8),
                          self.vals[rows].reshape(-1)]).cpu().numpy()
+        ph = ACTIVE.phases
+        if ph is not None:
+            ph.next("assemble")
         meta = buf[:n_meta * 8].view(np.int64)
         n_cand = int(meta[0])
         if probing:
@@ -465,6 +476,9 @@ def build_run(keys: torch.Tensor, seqs: torch.Tensor, vlens: torch.Tensor,
               bloom_geometry: Optional[Tuple[int, int]] = None) -> SortedRun:
     """Sort by key, deduplicate keeping the newest seq, optionally GC
     deletes.  Columns are tensors on one device; ``vals`` is (n, Vmax)."""
+    ph = ACTIVE.phases
+    if ph is not None:
+        ph.next("sort")
     if not assume_unique_sorted and keys.numel():
         # Stable sort by (key, -seq): newest version of each key comes first.
         by_seq = torch.argsort(seqs, descending=True, stable=True)

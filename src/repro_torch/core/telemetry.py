@@ -35,25 +35,126 @@ the new run's one metadata read-back (``SortedRun``'s construction), with
 its filter build and block checksums possibly still running on the device,
 and ``put``/``put_batch``/``write_batch`` launch no device work unless
 they flush.
+
+Phases.  A store call is cut into named phases that tile it (``PHASES``,
+each one's code region below).  The store opens a
+:class:`PhaseRecorder` around its own call (:meth:`Telemetry.enter` /
+:meth:`PhaseRecorder.exit`) and publishes it in the thread-local
+``ACTIVE``, so the leaf modules (``run``, ``iterator``, ``memtable``) cut
+phases with ``ACTIVE.phases.next(...)`` and no extra argument; with
+telemetry off ``ACTIVE.phases`` stays ``None`` and a phase site is that
+one lookup and one ``is None`` test.  ``next`` closes the open phase and
+opens the next with one clock read; a phase the open call does not list is
+no cut (a run built under a scan's range view stays in the scan's phase).
+Each closed phase records its duration in the histogram
+``<parent>.<phase>`` and appends ``(name, request id, t0, t1)`` to the
+thread's bounded interval buffer (oldest dropped first, counted in
+``spans_dropped``); :meth:`Telemetry.delta` returns the window's intervals
+as ``<parent>.<phase>_end`` events.  A flush or compaction set off inside
+a call nests: the call's open phase closes as the child opens and reopens
+as it returns, on the same clock reads, and the child's phases keep the
+call's request id.
+
+``PHASES``, by parent, with each phase's code region:
+
+    multi_get / get (``LSMStore._multi_get_impl``,
+    ``SortedRun.point_get_batch``)
+      memtable_probe  the keys' conversion and the probe of every memtable
+      upload          ``keys_to_device`` of the keys the memtables left
+      run_probe       per run: the filter probe, ``searchsorted`` and the
+                      hit test on the device, through the wait for the hits
+                      and the one read-back
+      assemble        per run: the counters, the per-hit value slicing and
+                      the placing of the run's answers
+    scan (``MergingIterator.scan``, ``_refill``)
+      seek            the iterator's cursors, ``seek_batch`` and its
+                      read-back, the memtable's sorted entries (on a range
+                      view, the whole read)
+      windows         per refill: every source's window, the runs' in one
+                      read-back (``_run_windows``)
+      merge           per refill: frontier clamp, stable sort, emission cap,
+                      consumed blocks, the winners' sources
+      fetch           per refill: ``fetch_values`` with its read-back and the
+                      placing of the values
+      emit            the loop that builds the answer from the merge buffer
+    seek (``LSMStore._seek_impl``)
+      probe           the whole call: each memtable's first live key and
+                      one ``seek_batch`` over the runs (or the range view's)
+    put_batch / write_batch (``LSMStore._write_batch``)
+      columns         ``list(ops_)``, the key, length and op columns, the
+                      length prefix sums; per chunk its sizing
+      wal_append      per chunk: the WAL frames and their CRC
+                      (``append_batch_cols``), a per-chunk fsync if set
+      memtable_insert per chunk: ``Memtable.put_batch``, the fullness test
+                      and, in async mode, the rotation
+    put (``LSMStore._write``; ``delete`` too)
+      wal_append, memtable_insert, as for a batch of one
+    flush (``LSMStore.flush``, ``_bg_flush``; exactly the ``flush_end``
+    event's interval)
+      wal_fsync       the WAL fsync (not in a background flush)
+      columns         ``Memtable.to_run``'s host packing and uploads
+      sort            ``build_run``'s sort and dedup
+      layout          ``SortedRun``'s block layout, its one read-back, fences
+      entry_crc       ``_entry_crcs`` and ``_block_crcs_from``
+      bloom           the ``BloomFilter`` build (K1b)
+      install         the level edit, ``_commit``, the memtable clear and
+                      the WAL truncate (background: the queue's release)
+    compaction (``LSMStore._apply``; exactly the ``compaction_end`` event's
+    interval)
+      merge           the ``merge_runs`` ladder (K2) and its gathers, up to
+                      the output columns
+      layout, entry_crc, bloom  as for a flush
+      install         the level edit and ``_commit``
 """
 from __future__ import annotations
 
+import bisect
+import itertools
 import math
 import threading
 import time
 from collections import deque
+from itertools import islice
+from operator import itemgetter
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = ["LatencyHistogram", "EventTrace", "TraceEvent", "Telemetry",
-           "TelemetrySnapshot", "TelemetryWindow", "OP_CLASSES"]
+           "TelemetrySnapshot", "TelemetryWindow", "OP_CLASSES", "PHASES",
+           "PhaseRecorder", "ACTIVE"]
 
 # Per-op-class latency histograms the engine records (benchmarks may add
 # their own classes; the Telemetry facade accepts any string key).
 OP_CLASSES = ("get", "multi_get", "put", "put_batch", "write_batch",
               "scan", "seek", "flush", "compaction", "view_rebuild",
               "wal_fsync", "stall", "rebalance", "scrub")
+
+# parent -> its phases in order (the module docstring's table)
+_PHASE_LISTS = {
+    "multi_get": ("memtable_probe", "upload", "run_probe", "assemble"),
+    "get": ("memtable_probe", "upload", "run_probe", "assemble"),
+    "scan": ("seek", "windows", "merge", "fetch", "emit"),
+    "seek": ("probe",),
+    "put_batch": ("columns", "wal_append", "memtable_insert"),
+    "write_batch": ("columns", "wal_append", "memtable_insert"),
+    "put": ("wal_append", "memtable_insert"),
+    "flush": ("wal_fsync", "columns", "sort", "layout", "entry_crc", "bloom",
+              "install"),
+    "compaction": ("merge", "layout", "entry_crc", "bloom", "install"),
+}
+PHASES = tuple(f"{parent}.{phase}" for parent, phases in _PHASE_LISTS.items()
+               for phase in phases)
+# parent -> {phase: full name}; name -> its end-event kind and parent
+_PHASE_NAMES = {parent: {ph: f"{parent}.{ph}" for ph in phases}
+                for parent, phases in _PHASE_LISTS.items()}
+_END_KIND = {name: name + "_end" for name in PHASES}
+_PARENT_OF = {name: name.split(".", 1)[0] for name in PHASES}
+_T0, _T1 = itemgetter(2), itemgetter(3)     # of (name, req, t0, t1)
+# Intervals a thread's buffer holds: 2.7 times the most that one thread
+# closed in a 30 s window of range reads on an H100 (97,704, about six a
+# scan); about 180 bytes an interval, taken as the buffer fills.
+SPAN_CAPACITY = 1 << 18
 
 _SQRT2 = math.sqrt(2.0)
 # Octaves 0..42 cover 1 ns .. 2^42 ns (~73 min) at 2 buckets/octave;
@@ -308,15 +409,17 @@ class EventTrace:
 
 class TelemetrySnapshot:
     """Point-in-time capture for windowed-delta sensing (DESIGN.md §17):
-    the merged per-op histograms plus the trace cursor.  Pair two of these
-    with :meth:`Telemetry.delta` to get an interval's histograms and events
-    without re-merging full histories each tick."""
+    the merged per-op histograms plus the trace cursor and the clock.  Pair
+    two of these with :meth:`Telemetry.delta` to get an interval's
+    histograms and events without re-merging full histories each tick."""
 
-    __slots__ = ("hists", "cursor")
+    __slots__ = ("hists", "cursor", "t_ns")
 
-    def __init__(self, hists: Dict[str, LatencyHistogram], cursor: int):
+    def __init__(self, hists: Dict[str, LatencyHistogram], cursor: int,
+                 t_ns: int = 0):
         self.hists = hists
         self.cursor = cursor
+        self.t_ns = t_ns            # phase intervals ending after it are new
 
 
 class TelemetryWindow:
@@ -338,6 +441,92 @@ class TelemetryWindow:
         return sum(h.n for h in self.hists.values())
 
 
+class _Active(threading.local):
+    phases: "Optional[PhaseRecorder]" = None
+
+
+# The calling thread's open phase recorder (None outside an instrumented
+# store call): what the leaf modules cut phases on.
+ACTIVE = _Active()
+
+
+class PhaseRecorder:
+    """One thread's phases of one :class:`Telemetry` (see the module
+    docstring).  The store opens it with :meth:`Telemetry.enter` and closes
+    it with :meth:`exit`; a call nested in an open one (a flush inside a
+    write) pushes a frame and keeps the request id.  ``buf`` holds the
+    closed phases' ``(name, request id, t0, t1)``, oldest dropped first;
+    its ``t1`` never decreases."""
+
+    __slots__ = ("tel", "hists", "buf", "dropped", "req", "depth", "names",
+                 "cur", "t0", "frames")
+
+    def __init__(self, tel: "Telemetry", hists: Dict[str, LatencyHistogram]):
+        self.tel = tel
+        self.hists = hists          # the thread's histogram shard
+        self.buf: deque = deque(maxlen=SPAN_CAPACITY)
+        self.dropped = 0
+        self.req = 0
+        self.depth = 0
+        self.names: Dict[str, str] = {}     # the open parent's phases
+        self.cur: Optional[str] = None      # the open phase's name
+        self.t0 = 0
+        self.frames: List[tuple] = []
+
+    def _close(self, t: int) -> None:
+        name = self.cur
+        buf = self.buf
+        if len(buf) == buf.maxlen:
+            self.dropped += 1
+        buf.append((name, self.req, self.t0, t))
+        hist = self.hists.get(name)
+        if hist is None:
+            hist = self.hists[name] = LatencyHistogram()
+        hist.record(t - self.t0)
+
+    def next(self, phase: str) -> None:
+        """Close the open phase and open ``phase`` of the same parent, on
+        one clock read; no cut if the parent has no such phase or it is the
+        open one."""
+        name = self.names.get(phase)
+        if name is None or name is self.cur:
+            return
+        t = time.perf_counter_ns()
+        self._close(t)
+        self.cur = name
+        self.t0 = t
+
+    def push(self, parent: str, phase: str) -> int:
+        """Open ``parent`` at its ``phase``; returns the clock read that
+        starts it (and ends the enclosing call's open phase)."""
+        t = time.perf_counter_ns()
+        if self.depth:
+            self._close(t)
+            self.frames.append((self.names, self.cur))
+        else:
+            self.req = next(self.tel._reqs)
+        self.depth += 1
+        self.names = _PHASE_NAMES[parent]
+        self.cur = self.names[phase]
+        self.t0 = t
+        return t
+
+    def exit(self) -> int:
+        """Close the innermost open call; returns the clock read that ends
+        it.  The enclosing call's phase reopens on that read; closing the
+        outermost call clears ``ACTIVE``."""
+        t = time.perf_counter_ns()
+        self._close(t)
+        self.depth -= 1
+        if self.depth:
+            self.names, self.cur = self.frames.pop()
+            self.t0 = t
+        else:
+            self.cur = None
+            ACTIVE.phases = None
+        return t
+
+
 class Telemetry:
     """Facade: per-op-class latency histograms + one event trace.
 
@@ -353,6 +542,8 @@ class Telemetry:
         self.trace = EventTrace(trace_capacity)
         self._tl = threading.local()
         self._shards: List[Dict[str, LatencyHistogram]] = []
+        self._recorders: List[PhaseRecorder] = []
+        self._reqs = itertools.count(1)     # request ids (GIL-atomic next)
 
     # ------------------------------------------------------------- recording
     def _local(self) -> Dict[str, LatencyHistogram]:
@@ -375,6 +566,50 @@ class Telemetry:
     def emit(self, kind: str, **fields) -> int:
         """Append one trace event; returns its seq token."""
         return self.trace.emit(kind, **fields)
+
+    def enter(self, parent: str, phase: str) -> Tuple[PhaseRecorder, int]:
+        """Open the calling thread's ``parent`` call at its first
+        ``phase``: a new request, or a child of the call already open on
+        this thread.  Returns the recorder (close with its ``exit``) and
+        the start's clock read."""
+        active = ACTIVE.phases
+        if active is not None and active.tel is self:
+            return active, active.push(parent, phase)
+        try:
+            rec = self._tl.ph
+        except AttributeError:
+            rec = self._tl.ph = PhaseRecorder(self, self._local())
+            self._recorders.append(rec)     # GIL-atomic, as the shards
+        ACTIVE.phases = rec
+        return rec, rec.push(parent, phase)
+
+    @property
+    def spans_dropped(self) -> int:
+        """Phase intervals the full buffers dropped, every thread's."""
+        return sum(r.dropped for r in list(self._recorders))
+
+    def intervals(self, since_ns: int = 0, until_ns: Optional[int] = None
+                  ) -> List[Tuple[str, int, int, int]]:
+        """The buffered phase intervals ``(name, request id, t0, t1)`` of
+        every thread with ``since_ns < t1 <= until_ns``, in start order.
+        Each buffer is read from its newest end, in copies that grow four
+        times over until one reaches ``since_ns``, so the cost follows the
+        window and not the buffer."""
+        out = []
+        for rec in list(self._recorders):
+            buf, k = rec.buf, 256
+            while True:     # each copy one C-level call under the GIL
+                tail = list(islice(reversed(buf), k))
+                if len(tail) < k or tail[-1][3] <= since_ns:
+                    break
+                k *= 4
+            tail.reverse()
+            lo = bisect.bisect_right(tail, since_ns, key=_T1)
+            hi = len(tail) if until_ns is None else \
+                bisect.bisect_right(tail, until_ns, key=_T1)
+            out.extend(tail[lo:hi])
+        out.sort(key=_T0)
+        return out
 
     # --------------------------------------------------------------- queries
     def histogram(self, op: str) -> LatencyHistogram:
@@ -403,13 +638,17 @@ class Telemetry:
         """Capture the merged histograms + trace cursor (allocation-light:
         one small int64 array per active op class; no locks taken — the
         merge reads the same GIL-atomic shard list ``histograms`` does)."""
-        return TelemetrySnapshot(self.histograms(), self.trace.last_seq)
+        t = time.perf_counter_ns()
+        return TelemetrySnapshot(self.histograms(), self.trace.last_seq, t)
 
     def delta(self, prev: TelemetrySnapshot) -> TelemetryWindow:
         """The interval since ``prev``: histogram diffs for every op class
         that recorded samples, plus ``EventTrace.since(prev.cursor)``
-        events.  The online tuner and ``serve_latency``'s tail attribution
-        both sense through this instead of re-merging full histories."""
+        events, then the phase intervals that ended in the interval as
+        ``<parent>.<phase>_end`` events (seq 0, ``ts_ns`` their end, fields
+        ``t0``, ``dur_ns``, ``req``, ``parent``) in start order.  The
+        online tuner and ``serve_latency``'s tail attribution both sense
+        through this instead of re-merging full histories."""
         end = self.snapshot()
         hists: Dict[str, LatencyHistogram] = {}
         for op, h in end.hists.items():
@@ -418,6 +657,10 @@ class Telemetry:
             if d.n > 0:
                 hists[op] = d
         events, _ = self.trace.since(prev.cursor)
+        for name, req, t0, t1 in self.intervals(prev.t_ns, end.t_ns):
+            events.append(TraceEvent(0, t1, _END_KIND[name], {
+                "t0": t0, "dur_ns": t1 - t0, "req": req,
+                "parent": _PARENT_OF[name]}))
         return TelemetryWindow(hists, events, end)
 
     def summary(self) -> Dict[str, Dict[str, float]]:

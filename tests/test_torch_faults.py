@@ -32,6 +32,7 @@ from repro_torch.core.memtable import _CRC, _HDR, FRAME_OVERHEAD
 from repro_torch.core.memtable import WriteAheadLog
 from repro_torch.kernels import ops
 from test_torch_store import assert_same_tree
+from test_torch_telemetry import assert_phase_classes
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
 # property tests: one intra-op thread per worker keeps them on time.
@@ -710,11 +711,13 @@ def test_recover_with_telemetry_matches_plain_twin():
         replay = [e for e in tel.trace.dump() if e.kind == "wal_replay"][-1]
         assert replay.fields["records"] >= 0
         assert tel.histogram("scrub").n >= 1
-        out.append((db_t, db_p, events(tel), counters(db_t),
-                    {op: h.n for op, h in tel.histograms().items()}))
+        out.append((db_t, db_p, events(tel), counters(db_t), tel))
     assert_same_tree(out[0][0], out[1][0])
     assert_same_tree(out[0][1], out[1][1])
-    assert out[0][2:] == out[1][2:]
+    assert out[0][2:4] == out[1][2:4]
+    # the port's histograms beyond the reference's: the phases it ran
+    assert_phase_classes(out[0][4], {op: h.n for op, h in
+                                     out[1][4].histograms().items()})
 
 
 def test_sharded_degradation_is_per_shard():

@@ -11,10 +11,18 @@ same op classes recorded the same number of times and the same sequence of
 event kinds as the reference store for the same operations; and the
 lossless ``StatsHub`` under thread contention.  Latencies themselves are
 the only thing that may differ.
+
+The port alone also cuts each call into the phases of
+``repro_torch.core.telemetry.PHASES``: its histograms beyond the
+reference's classes are exactly the phases the workload ran
+(:func:`assert_phase_classes`), and the phases of each call tile it (the
+tests from ``test_phases_tile_each_request`` on).
 """
+import collections
 import dataclasses
 import math
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -24,8 +32,10 @@ from hypothesis import given, settings, strategies as st
 import repro.core as ref
 import repro.core.telemetry as ref_tel
 import repro_torch.core as pc
-from repro_torch.core import EventTrace, IOStats, LatencyHistogram, StatsHub
-from repro_torch.core.telemetry import BUCKET_EDGES, N_BUCKETS, bucket_of
+from repro_torch.core import (EventTrace, IOStats, LatencyHistogram,
+                              StatsHub, telemetry)
+from repro_torch.core.telemetry import (ACTIVE, BUCKET_EDGES, N_BUCKETS,
+                                        PHASES, bucket_of)
 from test_torch_store import assert_same_tree
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
@@ -49,6 +59,20 @@ def _same_hist(a, b):
     assert np.array_equal(a.counts, b.counts)
     assert (a.n, a.sum_ns, a.max_ns, a.min_ns) == \
         (b.n, b.sum_ns, b.max_ns, b.min_ns)
+
+
+def assert_phase_classes(tel, ref_counts):
+    """The port's histogram counts equal the reference's ``ref_counts``
+    (op class -> samples) over the reference's classes, and its other
+    classes are exactly the ``PHASES`` names the workload ran: one sample
+    per buffered interval, each of a call the reference recorded too."""
+    got = {op: h.n for op, h in tel.histograms().items()}
+    assert {op: got.get(op) for op in ref_counts} == ref_counts
+    assert tel.spans_dropped == 0
+    ran = collections.Counter(name for name, *_ in tel.intervals())
+    assert {op: n for op, n in got.items() if op not in ref_counts} == ran
+    assert set(ran) <= set(PHASES)
+    assert {name.split(".")[0] for name in ran} <= set(ref_counts)
 
 
 # ------------------------------------------------------------ histogram math
@@ -166,6 +190,14 @@ def _mixed_workload(db, n=3000):
     db.write_batch((int(k), b"z") for k in keys[200:400])
     db.flush()
     reads.append(db.scan(int(keys[5]), 30))
+    # the merging iterator (a snapshot bypasses the range view) across a
+    # put_batch that flushes and compacts
+    snap = db.get_snapshot()
+    db.put_batch(keys[n // 4:].tolist(), b"w" * 24)
+    reads.append(db.scan(int(keys[9]), 70, snap))
+    reads.append(db.scan(0, 40, snap))
+    db.release_snapshot(snap)
+    reads.append(db.scan(int(keys[11]), 25))
     return reads
 
 
@@ -203,15 +235,15 @@ def test_disabled_mode_is_noop_identity(shards):
     rtel = db_ref.telemetry
     assert [e.kind for e in tel.trace.dump()] == \
         [e.kind for e in rtel.trace.dump()]
-    assert {op: h.n for op, h in tel.histograms().items()} == \
-        {op: h.n for op, h in rtel.histograms().items()}
+    assert_phase_classes(tel, {op: h.n for op, h in
+                               rtel.histograms().items()})
 
 
 def test_sharded_aggregates_one_telemetry():
     """Every shard records into the facade's one Telemetry (live config
     sharing): the same histogram counts and event kinds as the
     reference's facade."""
-    got = []
+    got, tels = [], []
     for m, kw in ((pc, {"device": "cpu"}), (ref, {})):
         tel = m.Telemetry()
         db = m.make_store(m.LSMConfig(shards=3, memtable_bytes=1 << 14,
@@ -227,9 +259,11 @@ def test_sharded_aggregates_one_telemetry():
         assert tel.histogram("flush").n >= 3
         snap = db.get_snapshot()
         db.release_snapshot(snap)
-        got.append(({op: h.n for op, h in tel.histograms().items()},
-                     [e.kind for e in tel.trace.dump()]))
+        got.append([e.kind for e in tel.trace.dump()])
+        tels.append(tel)
     assert got[0] == got[1]
+    assert_phase_classes(tels[0], {op: h.n for op, h in
+                                   tels[1].histograms().items()})
 
 
 # ------------------------------------------------------- lost-update hammer
@@ -299,6 +333,8 @@ def test_engine_records_op_classes_and_events():
     out = []
     for m, kw in ((pc, dict(device="cpu")), (ref, {})):
         tel = m.Telemetry()
+        if m is pc:
+            pc_tel = tel
         db = m.LSMStore(m.LSMConfig(memtable_bytes=1 << 13, bits_per_key=8,
                                     telemetry=tel), **kw)
         for i in range(4000):
@@ -324,11 +360,15 @@ def test_engine_records_op_classes_and_events():
                    and "src" in e.fields and "dst" in e.fields for e in ends)
         assert "compaction" in tel.report()
         assert db.telemetry is tel
+        # the port's phase classes follow the reference's in summary()
         out.append(([(e.kind, {k: v for k, v in e.fields.items()
                                if k not in ("t0", "dur_ns")})
                      for e in tel.trace.dump()],
-                    {op: d["count"] for op, d in s.items()}, list(s)))
+                    {op: d["count"] for op, d in s.items()
+                     if op not in PHASES},
+                    [op for op in s if op not in PHASES]))
     assert out[0] == out[1]
+    assert_phase_classes(pc_tel, out[1][1])
 
 
 def test_slowdown_pressure_events_and_stall_histogram():
@@ -380,3 +420,186 @@ def test_iostats_to_dict_stable_order():
     assert s2.delta(s).to_dict()["blocks_read"] == 2
     assert d == ref.IOStats(blocks_read=3, point_reads=7).to_dict()
     assert sum([s, s2]).blocks_read == 8
+
+
+# ------------------------------------------------------------------ phases
+def _phase_store(tel, faults=None):
+    """A CPU store loaded past its memtable several times over: runs on
+    three levels, so reads probe runs and a batch flushes and compacts."""
+    db = pc.LSMStore(pc.LSMConfig(memtable_bytes=1 << 13, bits_per_key=8,
+                                  telemetry=tel, faults=faults),
+                     device="cpu")
+    keys = np.random.default_rng(5).permutation(6000).astype(np.uint64)
+    db.put_batch(keys[:4000].tolist(), b"v" * 24)
+    db.flush()
+    db.put_batch(keys[4000:4300].tolist(), b"m" * 24)     # memtable hits
+    return db, keys
+
+
+def _requests(ivs):
+    by = collections.defaultdict(list)
+    for iv in ivs:
+        by[iv[1]].append(iv)
+    return dict(by)
+
+
+def _assert_tiles(ivs, lo, hi, tol=1000):
+    """``ivs`` (in start order) follow each other and cover [lo, hi], each
+    boundary within ``tol`` ns."""
+    assert ivs
+    assert abs(ivs[0][2] - lo) <= tol and abs(ivs[-1][3] - hi) <= tol
+    for a, b in zip(ivs, ivs[1:]):
+        assert abs(b[2] - a[3]) <= tol, (a, b)
+    total = sum(t1 - t0 for _, _, t0, t1 in ivs)
+    assert abs(total - (hi - lo)) <= tol * len(ivs)
+
+
+def _call(db, op, keys):
+    if op == "multi_get":
+        return db.multi_get(keys[::7][:400])
+    if op == "scan":
+        return db.scan(int(keys[11]), 90)
+    if op == "put_batch":       # fills the memtable: a flush and compactions
+        return db.put_batch(keys[1000:3000].tolist(), b"p" * 24)
+    # flushes called directly; the fourth L0 run sets off compactions,
+    # each a request of its own
+    for i in range(4 if op == "compaction" else 1):
+        db.put_batch(keys[i * 100:(i + 1) * 100].tolist(), b"f" * 24)
+        db.flush()
+
+
+@pytest.mark.parametrize("op", ["multi_get", "scan", "put_batch", "flush",
+                                "compaction"])
+def test_phases_tile_each_request(op):
+    """Each request's phases follow one another inside the call and sum to
+    its recorded duration: the op's histogram sample, or for a flush or a
+    compaction called outside a write its end event's interval."""
+    tel = pc.Telemetry()
+    db, keys = _phase_store(tel)
+    snap = tel.snapshot()
+    a = time.perf_counter_ns()
+    _call(db, op, keys)
+    b = time.perf_counter_ns()
+    win = tel.delta(snap)
+    reqs = _requests(tel.intervals(snap.t_ns))
+    for ivs in reqs.values():
+        assert a <= ivs[0][2] and ivs[-1][3] <= b
+        _assert_tiles(ivs, ivs[0][2], ivs[-1][3])
+    if op in ("flush", "compaction"):
+        ends = [e for e in win.events if e.kind == op + "_end"]
+        assert ends and len(ends) == win.hists[op].n
+        starts = {ivs[0][2]: ivs for ivs in reqs.values()}
+        for e in ends:
+            lo, hi = e.interval()
+            ivs = starts[lo]
+            assert {iv[0].split(".")[0] for iv in ivs} == {op}
+            _assert_tiles(ivs, lo, hi, tol=0)
+        return
+    (ivs,) = reqs.values()
+    assert ivs[0][0].startswith(op + ".")
+    if op == "put_batch":
+        assert {"flush.bloom", "compaction.merge"} <= {iv[0] for iv in ivs}
+    assert abs(sum(t1 - t0 for _, _, t0, t1 in ivs)
+               - win.hists[op].sum_ns) <= 1000 * len(ivs)
+
+
+def test_flush_and_compaction_phases_tile_their_end_events():
+    """Inside writes, each ``flush_end`` / ``compaction_end`` interval is
+    tiled exactly by its own phases, which carry the write's request
+    id; the write's phases close on the child's first read and reopen on
+    its last."""
+    tel = pc.Telemetry()
+    db, keys = _phase_store(tel)
+    snap = tel.snapshot()
+    for i in range(4):
+        db.put_batch(keys[i * 1500:(i + 1) * 1500].tolist(), b"q" * 24)
+    win = tel.delta(snap)
+    phases = [e for e in win.events if e.kind[:-4] in PHASES]
+    spans = [e for e in win.events
+             if e.kind in ("flush_end", "compaction_end")]
+    assert sum(e.kind == "flush_end" for e in spans) >= 4
+    assert any(e.kind == "compaction_end" for e in spans)
+    for e in spans:
+        lo, hi = e.interval()
+        parent = e.kind[:-4]
+        inner = [p for p in phases if lo <= p.fields["t0"] < hi]
+        assert inner and all(p.fields["parent"] == parent for p in inner)
+        assert inner[0].fields["t0"] == lo
+        assert inner[-1].fields["t0"] + inner[-1].fields["dur_ns"] == hi
+        for x, y in zip(inner, inner[1:]):
+            assert y.fields["t0"] == x.fields["t0"] + x.fields["dur_ns"]
+        assert len({p.fields["req"] for p in inner}) == 1
+        # the enclosing write's phase ends on the child's first read
+        assert any(p.fields["t0"] + p.fields["dur_ns"] == lo
+                   and p.fields["parent"] == "put_batch" for p in phases)
+    # four writes, four request ids, each write's phases contiguous
+    reqs = _requests([(e.kind[:-4], e.fields["req"], e.fields["t0"],
+                       e.fields["t0"] + e.fields["dur_ns"]) for e in phases])
+    assert len(reqs) == 4
+    for ivs in reqs.values():
+        _assert_tiles(ivs, ivs[0][2], ivs[-1][3], tol=0)
+
+
+def test_every_phase_is_listed_and_a_request_shares_its_id():
+    """A mixed workload (point reads, scans, seeks, every write entry
+    point, flushes, compactions) records every name in ``PHASES`` and no
+    other, each ``<parent>.<phase>``, so no listed site is lost and no
+    phase folds into its neighbour; its events carry the window's fields;
+    distinct calls have distinct request ids; nothing stays open after a
+    call."""
+    tel = pc.Telemetry()
+    db = pc.make_store(pc.LSMConfig(memtable_bytes=1 << 14, bits_per_key=8,
+                                    telemetry=tel), device="cpu")
+    snap = tel.snapshot()
+    _mixed_workload(db)
+    assert ACTIVE.phases is None
+    win = tel.delta(snap)
+    ivs = tel.intervals()
+    assert {iv[0] for iv in ivs} == set(PHASES)
+    evs = [e for e in win.events if e.kind[:-4] in PHASES]
+    assert len(evs) == len(ivs)
+    for e, (name, req, t0, t1) in zip(evs, ivs):
+        assert e.kind == name + "_end" and e.interval() == (t0, t1)
+        assert e.fields["req"] == req and e.fields["parent"] == \
+            name.split(".")[0] and e.ts_ns == t1
+    assert [e.fields["t0"] for e in evs] == sorted(e.fields["t0"]
+                                                   for e in evs)
+    # one id a call: the 300 gets and 200 puts give 500 distinct ids
+    gets = {req for name, req, *_ in ivs if name.startswith("get.")}
+    puts = {req for name, req, *_ in ivs if name.startswith("put.")}
+    assert len(gets) == 300 and len(puts) >= 200 and not gets & puts
+    assert all(PHASES.count(p) == 1 for p in PHASES)
+    assert all(p.count(".") == 1 for p in PHASES)
+
+
+def test_phase_buffer_drops_the_oldest(monkeypatch):
+    """A buffer smaller than the load keeps the newest intervals and
+    counts the others in ``spans_dropped``; the histograms keep all."""
+    monkeypatch.setattr(telemetry, "SPAN_CAPACITY", 6)
+    tel = pc.Telemetry()
+    db, keys = _phase_store(tel)
+    db.multi_get(keys[4300:4700])       # past the memtable: several runs
+    kept = tel.intervals()
+    recorded = sum(h.n for op, h in tel.histograms().items() if op in PHASES)
+    assert len(kept) == 6 and tel.spans_dropped == recorded - 6 > 0
+    assert all(iv[0].startswith("multi_get.") for iv in kept)
+    assert kept[-1][0] == "multi_get.assemble"
+    assert len({iv[1] for iv in kept}) == 1
+
+
+def test_failed_call_closes_its_phases():
+    """A write whose flush fails leaves no phase open: the next call is a
+    new request whose phases tile it."""
+    faults = pc.FaultInjector()
+    tel = pc.Telemetry()
+    db, keys = _phase_store(tel, faults)
+    faults.fail("flush_write")
+    with pytest.raises(pc.InjectedFault):
+        db.put_batch(keys[:2000].tolist(), b"f" * 24)
+    assert ACTIVE.phases is None
+    snap = tel.snapshot()
+    db.multi_get(keys[:64])
+    (ivs,) = _requests(tel.intervals(snap.t_ns)).values()
+    _assert_tiles(ivs, ivs[0][2], ivs[-1][3], tol=0)
+    assert abs(sum(t1 - t0 for *_, t0, t1 in ivs)
+               - tel.delta(snap).hists["multi_get"].sum_ns) <= 1
