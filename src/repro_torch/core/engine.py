@@ -1115,9 +1115,9 @@ class LSMStore:
             dtype=KEY_DTYPE)
         n = int(keys_arr.size)
         st.point_reads += n
-        results: List[Optional[bytes]] = [None] * n
         if n == 0:
-            return results
+            return []
+        answers = np.empty(n, dtype=object)      # None: not found
         pending = np.arange(n, dtype=np.int64)
         if snapshot is None:
             # memtables before levels (see _mem_sources): a racing install
@@ -1130,12 +1130,12 @@ class LSMStore:
                 for j, k in zip(pending.tolist(), keys_arr[pending].tolist()):
                     hit = get(k)
                     if hit is not None:
-                        results[j] = hit[1]   # value, or None: tombstone
+                        answers[j] = hit[1]   # value, or None: tombstone
                     else:
                         keep.append(j)
                 pending = np.asarray(keep, dtype=np.int64)
         if pending.size == 0:
-            return results
+            return answers.tolist()
         ph = ACTIVE.phases
         if ph is not None:
             ph.next("upload")
@@ -1155,11 +1155,10 @@ class LSMStore:
                 ph.next("run_probe")
             found, values, q = run.point_get_batch(q, st, use_bloom, cache,
                                                    paranoid, faults)
-            if found.any():
-                for p in np.nonzero(found)[0].tolist():
-                    results[int(pending[p])] = values[p]
+            if values.size:
+                answers[pending[found]] = values
                 pending = pending[~found]
-        return results
+        return answers.tolist()
 
     # -------------------------------------------------------- range reads
     def seek(self, key: int, snapshot: Optional[Version] = None

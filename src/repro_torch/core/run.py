@@ -45,6 +45,11 @@ _SIGN = 1 << 63
 # one device pass of a paranoid point_get_batch (all of a run's candidate
 # blocks), "block" one verify_block (one block, as a paranoid seek's).
 VERIFY_PASSES = {"batch": 0, "block": 0}
+# Hit rows of point_get_batch (under the same lock, once per run per
+# batch): "view" rows became their value through the fixed-width bytes
+# view, "exact" rows (a value ending in a zero byte, or padding past its
+# length that is not zero) through their own slice.
+ASSEMBLY_ROWS = {"view": 0, "exact": 0}
 
 
 # Scratch bound of the per-entry checksum pass: rows are checksummed in
@@ -252,14 +257,16 @@ class SortedRun:
     def point_get_batch(self, keys: torch.Tensor, stats: IOStats,
                         use_bloom: bool = True, cache=None,
                         paranoid: bool = False, faults=None
-                        ) -> Tuple[np.ndarray, List[Optional[bytes]],
-                                   torch.Tensor]:
+                        ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
         """Vectorized point lookup of order-mapped ``keys`` (on this run's
         device).
 
         Returns ``(found, values, rest)``: found[i] True means key i's
-        newest version lives in this run (values[i] is its bytes, or None
-        for a tombstone); ``rest`` is ``keys[~found]``, still on the device.
+        newest version lives in this run; ``values`` is an object array of
+        the hits' answers in key order (``values[j]`` answers the j-th True
+        of ``found``: its bytes, or None for a tombstone), made by
+        :func:`_hit_values`; ``rest`` is ``keys[~found]``, still on the
+        device.
         One bloom kernel launch + one searchsorted over the whole batch,
         one wait for the hit count and one device-to-host copy; aggregate
         IOStats accounting is identical to the reference's.  With a
@@ -279,7 +286,7 @@ class SortedRun:
         """
         n = keys.numel()
         found = np.zeros(n, dtype=bool)
-        values: List[Optional[bytes]] = [None] * n
+        values = np.empty(0, dtype=object)
         if n == 0 or self._len == 0:
             return found, values, keys
         probing = use_bloom and self.bloom.k > 0
@@ -340,14 +347,9 @@ class SortedRun:
         if paranoid and meta[o - 1] < self.n_blocks:
             raise CorruptionError(self.run_id, int(meta[o - 1]))
         stats.false_positives += n_cand - n_hit
-        pos = meta[1:1 + n_hit]
-        lens = meta[1 + n_hit:1 + 2 * n_hit].tolist()
-        found[pos] = True
-        vmax = self.vals.shape[1]
-        flat = buf[n_meta * 8:].tobytes()
-        for o, (p, ln) in enumerate(zip(pos.tolist(), lens)):
-            if ln != TOMBSTONE_LEN:
-                values[p] = flat[o * vmax:o * vmax + ln]
+        found[meta[1:1 + n_hit]] = True
+        values = _hit_values(buf[n_meta * 8:], meta[1 + n_hit:1 + 2 * n_hit],
+                             self.vals.shape[1])
         rest = keys[~hit] if n_hit else keys
         return found, values, rest
 
@@ -389,7 +391,34 @@ class SortedRun:
         found, values, _ = self.point_get_batch(
             ops.keys_to_device([key], self.device), stats, use_bloom, cache,
             paranoid, faults)
-        return bool(found[0]), values[0]
+        return bool(found[0]), values[0] if found[0] else None
+
+
+def _hit_values(raw: np.ndarray, lens: np.ndarray, vmax: int) -> np.ndarray:
+    """The answers of a run's hit rows, in one pass: ``raw`` is the rows'
+    read-back payload (``len(lens)`` rows of ``vmax`` bytes, flat),
+    ``lens`` their value lengths.  Returns an object array of ``bytes``
+    (None at a tombstone).
+
+    The rows are viewed as fixed-width ``S{vmax}`` strings and become
+    ``bytes`` in one C loop; such a string drops trailing zero bytes, so
+    its ``str_len`` equals ``ln`` exactly when the row is ``value[:ln]``
+    followed by zeros.  The other rows (a value ending in a zero byte,
+    padding that is not zero) take their own slice ``row[:ln]``."""
+    m = lens.size
+    tomb = lens == TOMBSTONE_LEN
+    # numpy has no zero-width string: a run of empty values views zeros
+    view = raw.view(f"S{vmax}") if vmax else np.zeros(m, dtype="S1")
+    values = view.astype(object)
+    exact = np.flatnonzero((np.char.str_len(view) != lens) & ~tomb)
+    rows = raw.reshape(m, vmax)
+    for i in exact.tolist():
+        values[i] = rows[i, :lens[i]].tobytes()
+    values[tomb] = None
+    with _build.COUNT_LOCK:
+        ASSEMBLY_ROWS["exact"] += exact.size
+        ASSEMBLY_ROWS["view"] += m - exact.size - int(tomb.sum())
+    return values
 
 
 def seek_batch(runs: Sequence[SortedRun], key: int, with_blocks=False):

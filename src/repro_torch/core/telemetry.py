@@ -64,8 +64,10 @@ call's request id.
       run_probe       per run: the filter probe, ``searchsorted`` and the
                       hit test on the device, through the wait for the hits
                       and the one read-back
-      assemble        per run: the counters, the per-hit value slicing and
-                      the placing of the run's answers
+      assemble        per run: the counters, the hits' values through one
+                      fixed-width bytes view (an exact slice for the rows
+                      it cannot give) and their placing with one fancy
+                      index; the wave's one ``tolist``
     scan (``MergingIterator.scan``, ``_refill``)
       seek            the iterator's cursors, ``seek_batch`` and its
                       read-back, the memtable's sorted entries (on a range

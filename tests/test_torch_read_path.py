@@ -27,6 +27,8 @@ from repro.core.bloom import BloomFilter as RefBloomFilter
 from repro.core.types import TOMBSTONE_LEN
 from repro.kernels.ops import bloom_probe_filter
 from repro_torch.core import iterator as port_iterator
+from repro_torch.core import run as port_run
+from repro_torch.core.types import IOStats
 from repro_torch.kernels import bloom, ops
 
 # Six xdist workers share 8 cores with the reference's timing-bounded
@@ -208,6 +210,163 @@ def test_iterator_streaming_api():
     keys = [k for k, _ in exp]
     assert keys == sorted(set(keys))
     assert_same_stats(port, reference)
+
+
+VALUE_SHAPES = ["zero_tail", "empty", "mixed", "tombstones"]
+READ_PATHS = ["runs_and_memtable", "snapshot", "block_cache", "paranoid"]
+
+
+def shaped_value(shape: str, k: int, rnd: int) -> bytes:
+    """Round ``rnd``'s value of key ``k``: ``zero_tail`` ends in 1-3 zero
+    bytes (some with zeros inside), ``empty`` is empty every other time
+    and always in round 2, ``mixed`` spans 1-40 bytes (some ending in
+    zero), ``tombstones`` is a plain value (the workload deletes)."""
+    h = (k * 7 + rnd * 13) % 41
+    if shape == "zero_tail":
+        return b"z%d\x00%d" % (k, rnd) * (h % 2) + b"\x00" * (1 + h % 3)
+    if shape == "empty":
+        return b"" if rnd == 2 or h % 2 else b"e%d.%d" % (k, rnd)
+    if shape == "mixed":
+        return bytes([(k + i) % 256 for i in range(1 + h % 40)])
+    return b"t%d.%d" % (k, rnd)
+
+
+@pytest.mark.parametrize("path", READ_PATHS)
+@pytest.mark.parametrize("shape", VALUE_SHAPES)
+def test_multi_get_value_shapes_match_reference(shape, path):
+    """The hits' answers come from the fixed-width view or, for the rows
+    it cannot give, their exact slice: every answer of ``multi_get`` and
+    ``get`` equals the reference's, on hits in the memtable and in several
+    runs, through a snapshot, the block cache and paranoid checks, and
+    every IOStats field is equal."""
+    kw = dict(memtable_bytes=1 << 12, base_level_bytes=1 << 14,
+              bits_per_key=10)
+    if path == "block_cache":
+        kw["cache_bytes"] = 1 << 12
+    if path == "paranoid":
+        kw["paranoid_checks"] = True
+    port, reference = make_pair("garnering", 0.8, **kw)
+    space = 240
+    snaps = None
+    for rnd in range(5):
+        keys = list(range(rnd * 11 % 7, space, 1 + rnd % 3))
+        if shape == "tombstones" and rnd == 3:
+            vals = [None] * len(keys)        # a run of tombstones alone
+        else:
+            vals = [None if shape == "tombstones" and k % 3 == rnd % 3
+                    else shaped_value(shape, k, rnd) for k in keys]
+        for db in (port, reference):
+            for k, v in zip(keys, vals):
+                if v is None:
+                    db.delete(k)
+                else:
+                    db.put(k, v)
+            if rnd < 4:                      # the last round stays in memory
+                db.flush()
+        if rnd == 2:
+            snaps = [db.get_snapshot() for db in (port, reference)]
+    queries = list(np.random.default_rng(len(shape)).integers(0, space + 20,
+                                                              400))
+    reads = [(None, None)] + ([tuple(snaps)] if path == "snapshot" else [])
+    for snap_p, snap_r in reads:
+        got = port.multi_get(queries, snapshot=snap_p)
+        want = reference.multi_get(queries, snapshot=snap_r)
+        assert got == want
+        assert [port.get(int(k), snapshot=snap_p) for k in queries] == \
+            [reference.get(int(k), snapshot=snap_r) for k in queries] == want
+        assert_same_stats(port, reference)
+    assert any(v is not None for v in want)
+    if shape == "tombstones":
+        assert want.count(None) > 40
+
+
+def _run_of(entries, vmax: int, pad: int):
+    """A run built directly from ``(key, value-or-None)`` entries, each row
+    padded past its length with the byte ``pad``."""
+    entries = sorted(entries)
+    n = len(entries)
+    vals = np.full((n, vmax), pad, dtype=np.uint8)
+    vlens = np.empty(n, dtype=np.int32)
+    for i, (_, v) in enumerate(entries):
+        vlens[i] = TOMBSTONE_LEN if v is None else len(v)
+        if v:
+            vals[i, :len(v)] = np.frombuffer(v, np.uint8)
+    return port_run.SortedRun(
+        ops.keys_to_device([k for k, _ in entries], "cpu"),
+        torch.arange(1, n + 1, dtype=torch.int64), torch.from_numpy(vlens),
+        torch.from_numpy(vals), bits_per_key=10)
+
+
+def test_point_get_batch_reads_value_prefix_past_nonzero_padding():
+    """A run whose padding past ``vlen`` is not zero, built directly:
+    ``point_get_batch``, ``point_get`` and a store's ``multi_get`` answer
+    exactly ``value[:vlen]``; ``ASSEMBLY_ROWS`` counts full 100-byte
+    values with a non-zero last byte as ``view`` and values ending in a
+    zero byte, or padded with non-zero bytes, as ``exact``."""
+    full = {k: bytes([1 + (k + i) % 255 for i in range(100)])
+            for k in range(0, 400, 4)}
+    run = _run_of(full.items(), 100, 0xAB)
+    queries = list(range(0, 400, 2))
+    before = dict(port_run.ASSEMBLY_ROWS)
+    found, values, rest = run.point_get_batch(
+        ops.keys_to_device(queries, "cpu"), IOStats())
+    assert found.tolist() == [k in full for k in queries]
+    assert values.dtype == object and values.tolist() == list(full.values())
+    assert rest.numel() == len(queries) - len(full)
+    assert port_run.ASSEMBLY_ROWS["view"] - before["view"] == len(full)
+    assert port_run.ASSEMBLY_ROWS["exact"] == before["exact"]
+
+    odd = {1: b"ends in zero\x00", 2: b"\x00\x00", 3: b"", 4: None,
+           5: b"short", 6: b"x" * 99 + b"\x00", 7: b"y" * 100, 8: b"\x00a"}
+    # 1, 2 and 6 end in a zero byte; 3, 5 and 8 are short: exact when
+    # their padding is 0xAB, a view when it is zero
+    for pad, exact in ((0xAB, 6), (0, 3)):
+        run = _run_of(odd.items(), 100, pad)
+        before = dict(port_run.ASSEMBLY_ROWS)
+        keys = list(range(0, 10))
+        found, values, _ = run.point_get_batch(
+            ops.keys_to_device(keys, "cpu"), IOStats())
+        assert found.tolist() == [k in odd for k in keys]
+        assert values.tolist() == list(odd.values())
+        assert [run.point_get(k, IOStats()) for k in keys] == \
+            [(k in odd, odd.get(k)) for k in keys]
+        # each hit row counted twice: in the batch and in its point_get
+        assert port_run.ASSEMBLY_ROWS["exact"] - before["exact"] == 2 * exact
+        assert port_run.ASSEMBLY_ROWS["view"] - before["view"] == \
+            2 * (len(odd) - 1 - exact)
+
+    # a run with no value bytes at all: empty values and a tombstone
+    run = _run_of({1: b"", 2: None, 3: b""}.items(), 0, 0)
+    before = dict(port_run.ASSEMBLY_ROWS)
+    found, values, _ = run.point_get_batch(
+        ops.keys_to_device([0, 1, 2, 3], "cpu"), IOStats())
+    assert found.tolist() == [False, True, True, True]
+    assert values.tolist() == [b"", None, b""]
+    assert port_run.ASSEMBLY_ROWS["view"] - before["view"] == 2
+    assert port_run.ASSEMBLY_ROWS["exact"] == before["exact"]
+
+    # through a store: flushed runs whose padding is then made non-zero
+    # (the entry checksums cover value[:vlen] only, so paranoid reads pass)
+    port = rt.LSMStore(rt.LSMConfig(memtable_bytes=1 << 12,
+                                    paranoid_checks=True), device="cpu")
+    want = {}
+    for k in range(300):
+        v = None if k % 5 == 0 else b"p%d" % k + b"\x00" * (k % 3)
+        want[k] = v
+        if v is None:
+            port.delete(k)
+        else:
+            port.put(k, v)
+    port.flush()
+    runs = list(port._runs_newest_first(port._levels))
+    assert len(runs) > 1
+    for r in runs:
+        col = torch.arange(r.vals.shape[1])
+        r.vals = torch.where(col >= r.vlens.clamp(min=0)[:, None],
+                             torch.tensor(0xCD, dtype=torch.uint8), r.vals)
+    queries = list(range(320))
+    assert port.multi_get(queries) == [want.get(k) for k in queries]
+    assert port.get(7) == want[7] and port.get(5) is None
 
 
 def test_multi_get_empty_and_memtable_only():
