@@ -1,6 +1,7 @@
 """A cell, a configuration, a traffic mix and a per-layer metric added as
-files and entries only, and found by name; the benchmark's imports; the
-command without a card or without the program."""
+files and entries only, and found by name; each configuration's tiny size
+for the CPU tests; the benchmark's imports; the command without a card or
+without the program."""
 import ast
 import json
 import os
@@ -8,10 +9,10 @@ import shutil
 import subprocess
 import sys
 
-from conftest import ROOT, SEED, TINY
-from portbench import cell
+import pytest
 
-PB = ROOT / "portbench"
+from conftest import BENCH, PB, ROOT, SEED, configuration, tiny, tiny_path
+from portbench import cell
 
 
 def test_added_files_are_found_by_name(tmp_path):
@@ -54,12 +55,26 @@ def test_added_files_are_found_by_name(tmp_path):
     for trace in (False, True):
         out = cell.run("small.scan_heavy", SEED, 0.3, trace, device="cpu",
                        root=tmp_path, bench_dir=tmp_path / "portbench",
-                       config_override=TINY["leveldb_dbbench"])
+                       config_override=tiny("leveldb_dbbench"))
         assert out["correct"] is True
         want = ({"scans_per_read.mix"} if trace
                 else {"ycsb_ops_per_s", "setup_s"})
         assert set(out["metrics"]) == want
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_configuration_has_a_tiny_size(config):
+    """Each configuration's size for the CPU tests is a file of its own,
+    ``tests/tiny/<config>.json``, whose fields the configuration has."""
+    assert tiny_path(config).exists(), (
+        f"configuration {config!r} has no tiny size for the CPU tests: "
+        f"add {tiny_path(config)}")
+    cfg = configuration(config)
+    for key, val in tiny(config).items():
+        assert key in cfg, key
+        if isinstance(val, dict):
+            assert set(val) <= set(cfg[key]), (key, set(val) - set(cfg[key]))
 
 
 def imports_of(path):

@@ -1,62 +1,32 @@
-"""The program's phases as the benchmark reads them: the eight phase
-shares on the tiny CPU cells, every phase interval handed to the trace
-reduction, and on a card a phase around a kernel placed on the
-profiler's clock."""
+"""The program's phases as the benchmark reads them: every phase share
+of ``BENCHMARK.json`` names phases of the program, each cell's shares on
+the tiny CPU store with every phase interval handed to the trace
+reduction, and on a card a phase around a kernel placed on the profiler's
+clock."""
 import json
 import time
 
 import pytest
 import torch
 
-from conftest import BENCH, CELLS, run_cell
+from conftest import (BENCH, CELLS, check_phase_shares, check_share_entry,
+                      phase_shares)
 from portbench import trace
 
-SHARES = {m["name"]: m for m in BENCH["per_layer"]
-          if m["source"] == "program_span"
-          and m["name"].split(".")[0] != "flush_compaction_pct"}
+SHARES = phase_shares(BENCH)
 
 
-def test_the_eight_shares_are_listed():
-    assert sorted(SHARES) == sorted([
-        "memtable_probe_pct.get", "run_probe_pct.get",
-        "result_assembly_pct.get", "scan_readback_pct.ycsb",
-        "host_merge_pct.ycsb", "wal_append_pct.put",
-        "memtable_insert_pct.put", "entry_crc_pct.put"])
-    assert all(m["unit"] == "%" and len(m["workloads"]) == 1
-               for m in SHARES.values())
+@pytest.mark.parametrize("name", sorted(SHARES))
+def test_share_reads_named_phases_of_the_program(name):
+    check_share_entry(name)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_phase_shares_read_on_the_cpu_store(cell, monkeypatch):
-    """Each share of the cell reads a value in [0, 100], and every phase
+    """Each share of the cell reads a value in [0, 100], the distinct
+    phases its shares name take at most the window, and every phase
     interval of the window reaches the trace reduction's program spans."""
-    from repro_torch.core import telemetry
-    windows, handed = [], []
-    delta, read_profile = telemetry.Telemetry.delta, trace.read_profile
-
-    def keep_window(self, prev):
-        win = delta(self, prev)
-        windows.append(win)
-        return win
-
-    def keep_spans(events, host_start_ns, spans):
-        handed.append(list(spans))
-        return read_profile(events, host_start_ns, spans)
-
-    monkeypatch.setattr(telemetry.Telemetry, "delta", keep_window)
-    monkeypatch.setattr(trace, "read_profile", keep_spans)
-    out = run_cell(cell, trace=True)
-    assert out["correct"] is True
-    mine = [n for n, m in SHARES.items() if cell in m["workloads"]]
-    assert mine
-    for name in mine:
-        assert 0.0 <= out["metrics"][name]["value"] <= 100.0, name
-    if cell == "dbbench.readrandom":
-        assert sum(out["metrics"][n]["value"] for n in mine) <= 100.0
-    (win,), (spans,) = windows, handed
-    phases = [(e.kind[:-4], *e.interval()) for e in win.events
-              if e.kind[:-4] in telemetry.PHASES]
-    assert phases and set(phases) <= set(spans)
+    check_phase_shares(cell, monkeypatch)
 
 
 @pytest.mark.cuda

@@ -1,21 +1,17 @@
 """The generator: the same records and op stream for the same seed,
 others for another seed; each mix's op shapes as its file states."""
-import json
-
 import numpy as np
 import pytest
 
-from conftest import BENCH, CELLS, ROOT, SEED, TINY
+from conftest import CELLS, SEED, configuration, mix_of, tiny, workload
 from portbench import generator as gen
 
 
 def stream(cell, seed, n_ops=40):
-    w = next(w for w in BENCH["workloads"] if w["name"] == cell)
-    cfg = json.loads((ROOT / f"portbench/configs/{w['config']}.json")
-                     .read_text())
-    records = {**cfg["records"], **TINY[w["config"]]["records"]}
-    mix = json.loads((ROOT / f"portbench/traffic/{w['traffic']}.json")
-                     .read_text())
+    config = workload(cell)["config"]
+    records = {**configuration(config)["records"],
+               **tiny(config)["records"]}
+    mix = mix_of(cell)
     rec = gen.load_records(seed, records)
     ops = gen.OpStream(seed, mix, rec)
     return rec, mix, [next(ops) for _ in range(n_ops)]
