@@ -341,9 +341,13 @@ class SortedRun:
         if cache is None:
             stats.blocks_read += n_cand
         else:
+            if ph is not None:
+                ph.next("cache")
             blk = meta[o:]
             cache.read_blocks(self.run_id, blk[blk >= 0].tolist(),
                               self.block_bytes, stats)
+            if ph is not None:
+                ph.next("assemble")
         if paranoid and meta[o - 1] < self.n_blocks:
             raise CorruptionError(self.run_id, int(meta[o - 1]))
         stats.false_positives += n_cand - n_hit

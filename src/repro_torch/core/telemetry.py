@@ -68,6 +68,10 @@ call's request id.
                       fixed-width bytes view (an exact slice for the rows
                       it cannot give) and their placing with one fancy
                       index; the wave's one ``tolist``
+      cache           per run, cut out of ``assemble`` with a block cache
+                      attached only: the candidates' block ids and
+                      ``BlockCache.read_blocks`` (hits, misses, admission,
+                      eviction)
     scan (``MergingIterator.scan``, ``_refill``)
       seek            the iterator's cursors, ``seek_batch`` and its
                       read-back, the memtable's sorted entries (on a range
@@ -134,8 +138,9 @@ OP_CLASSES = ("get", "multi_get", "put", "put_batch", "write_batch",
 
 # parent -> its phases in order (the module docstring's table)
 _PHASE_LISTS = {
-    "multi_get": ("memtable_probe", "upload", "run_probe", "assemble"),
-    "get": ("memtable_probe", "upload", "run_probe", "assemble"),
+    "multi_get": ("memtable_probe", "upload", "run_probe", "assemble",
+                  "cache"),
+    "get": ("memtable_probe", "upload", "run_probe", "assemble", "cache"),
     "scan": ("seek", "windows", "merge", "fetch", "emit"),
     "seek": ("probe",),
     "put_batch": ("columns", "wal_append", "memtable_insert"),

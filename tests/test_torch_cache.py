@@ -327,6 +327,44 @@ def test_multi_get_cached_matches_scalar_results():
     assert same_cache(*dbs)
 
 
+@pytest.mark.parametrize("policy", ["lru", "clock"])
+def test_zipfian_waves_evict_inside_each_wave(policy):
+    """Zipfian ``multi_get`` waves through a cache of four blocks, too
+    small for one wave (it evicts inside every wave), beside a pinned L0
+    run: the answers equal the uncached twin's, the plain dict's and the
+    reference's; wave by wave the cached store's hits + misses equal the
+    twin's ``blocks_read`` and its ``blocks_read`` equals its misses; every
+    counter and the cache's order equal the reference's."""
+    block = 512
+    db_u = rt.LSMStore(rt.LSMConfig(**cfg(block_size=block)), device="cpu")
+    db_c, ref_c = make_pair(cache_bytes=4 * block, pin_l0_bytes=2 * block,
+                            policy=policy, block_size=block)
+    oracle = fill(db_u, seed=11, n_ops=2500, key_space=600)
+    for db in (db_c, ref_c):
+        assert fill(db, seed=11, n_ops=2500, key_space=600) == oracle
+    assert db_c.block_cache.pinned_bytes > 0
+    # YCSB's zipfian (theta 0.99) over 700 keys, 100 of them never written,
+    # the hottest scattered over the key space
+    rng = np.random.default_rng(7)
+    space = 700
+    p = 1.0 / np.arange(1, space + 1) ** 0.99
+    hot = rng.permutation(space)
+    for _ in range(6):
+        keys = hot[rng.choice(space, 256, p=p / p.sum())].tolist()
+        s_u, s_c = db_u.stats.snapshot(), db_c.stats.snapshot()
+        evicted = db_c.block_cache.evictions
+        got = [db.multi_get(keys) for db in (db_c, db_u, ref_c)]
+        assert got[0] == got[1] == got[2] == [oracle.get(k) for k in keys]
+        d_u, d_c = db_u.stats.delta(s_u), db_c.stats.delta(s_c)
+        assert d_c.cache_hit_blocks + d_c.cache_miss_blocks == d_u.blocks_read
+        assert d_c.blocks_read == d_c.cache_miss_blocks
+        assert d_c.cache_hit_blocks > 0
+        assert d_c.cache_miss_blocks > 4 and \
+            db_c.block_cache.evictions > evicted
+    assert counters(db_c) == counters(ref_c)
+    assert same_cache(db_c, ref_c)
+
+
 # ------------------------------------------------------ acceptance criterion
 @pytest.mark.parametrize("policy", ["clock", "lru"])
 def test_cached_reads_cheaper_identical_results(policy):

@@ -423,11 +423,14 @@ def test_iostats_to_dict_stable_order():
 
 
 # ------------------------------------------------------------------ phases
-def _phase_store(tel, faults=None):
+def _phase_store(tel, faults=None, cache_bytes=0):
     """A CPU store loaded past its memtable several times over: runs on
-    three levels, so reads probe runs and a batch flushes and compacts."""
+    three levels, so reads probe runs and a batch flushes and compacts;
+    with ``cache_bytes`` its block reads go through an LRU cache."""
     db = pc.LSMStore(pc.LSMConfig(memtable_bytes=1 << 13, bits_per_key=8,
-                                  telemetry=tel, faults=faults),
+                                  telemetry=tel, faults=faults,
+                                  cache_bytes=cache_bytes,
+                                  cache_policy="lru"),
                      device="cpu")
     keys = np.random.default_rng(5).permutation(6000).astype(np.uint64)
     db.put_batch(keys[:4000].tolist(), b"v" * 24)
@@ -468,14 +471,18 @@ def _call(db, op, keys):
         db.flush()
 
 
-@pytest.mark.parametrize("op", ["multi_get", "scan", "put_batch", "flush",
-                                "compaction"])
+@pytest.mark.parametrize("op", ["multi_get", "cached_multi_get", "scan",
+                                "put_batch", "flush", "compaction"])
 def test_phases_tile_each_request(op):
     """Each request's phases follow one another inside the call and sum to
     its recorded duration: the op's histogram sample, or for a flush or a
-    compaction called outside a write its end event's interval."""
+    compaction called outside a write its end event's interval.  A
+    ``multi_get`` through a block cache cuts its ``cache`` phases out of
+    ``assemble`` and still tiles."""
     tel = pc.Telemetry()
-    db, keys = _phase_store(tel)
+    cached = op.startswith("cached_")
+    op = op.removeprefix("cached_")
+    db, keys = _phase_store(tel, cache_bytes=1 << 14 if cached else 0)
     snap = tel.snapshot()
     a = time.perf_counter_ns()
     _call(db, op, keys)
@@ -497,6 +504,12 @@ def test_phases_tile_each_request(op):
         return
     (ivs,) = reqs.values()
     assert ivs[0][0].startswith(op + ".")
+    names = [iv[0] for iv in ivs]
+    assert ("multi_get.cache" in names) == cached
+    if cached:      # each cache phase lies inside its run's assembly
+        for i, name in enumerate(names):
+            if name == "multi_get.cache":
+                assert names[i - 1] == names[i + 1] == "multi_get.assemble"
     if op == "put_batch":
         assert {"flush.bloom", "compaction.merge"} <= {iv[0] for iv in ivs}
     assert abs(sum(t1 - t0 for _, _, t0, t1 in ivs)
@@ -548,8 +561,10 @@ def test_every_phase_is_listed_and_a_request_shares_its_id():
     distinct calls have distinct request ids; nothing stays open after a
     call."""
     tel = pc.Telemetry()
+    # a block cache, so that point reads cut their ``cache`` phases
     db = pc.make_store(pc.LSMConfig(memtable_bytes=1 << 14, bits_per_key=8,
-                                    telemetry=tel), device="cpu")
+                                    cache_bytes=1 << 16, telemetry=tel),
+                       device="cpu")
     snap = tel.snapshot()
     _mixed_workload(db)
     assert ACTIVE.phases is None
@@ -570,6 +585,23 @@ def test_every_phase_is_listed_and_a_request_shares_its_id():
     assert len(gets) == 300 and len(puts) >= 200 and not gets & puts
     assert all(PHASES.count(p) == 1 for p in PHASES)
     assert all(p.count(".") == 1 for p in PHASES)
+
+
+def test_no_cache_phase_without_a_cache():
+    """A store with no block cache cuts no ``cache`` phase: its point
+    reads record the four phases they recorded before the cache had one,
+    and no ``cache`` histogram."""
+    tel = pc.Telemetry()
+    db, keys = _phase_store(tel)
+    snap = tel.snapshot()
+    db.multi_get(keys[::7][:400])
+    for k in keys[4290:4310]:          # memtable hits and run hits
+        db.get(int(k))
+    names = {iv[0] for iv in tel.intervals(snap.t_ns)}
+    assert names == {f"{parent}.{phase}" for parent in ("multi_get", "get")
+                     for phase in ("memtable_probe", "upload", "run_probe",
+                                   "assemble")}
+    assert not any(op.endswith(".cache") for op in tel.histograms())
 
 
 def test_phase_buffer_drops_the_oldest(monkeypatch):
