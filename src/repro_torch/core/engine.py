@@ -1121,19 +1121,23 @@ class LSMStore:
         pending = np.arange(n, dtype=np.int64)
         if snapshot is None:
             # memtables before levels (see _mem_sources): a racing install
-            # gives a benign duplicate, never a lost read
+            # gives a benign duplicate, never a lost read.  Only the keys
+            # the memtable's probe finds go through its get; one the get
+            # misses (a racing clear) stays pending.
             for mt in self._mem_sources():
                 if len(mt) == 0 or pending.size == 0:
                     continue
-                keep = []
+                wanted = keys_arr[pending]
+                idx = mt.probe(wanted)
+                done = []
                 get = mt.get
-                for j, k in zip(pending.tolist(), keys_arr[pending].tolist()):
+                for i, k in zip(idx.tolist(), wanted[idx].tolist()):
                     hit = get(k)
                     if hit is not None:
-                        answers[j] = hit[1]   # value, or None: tombstone
-                    else:
-                        keep.append(j)
-                pending = np.asarray(keep, dtype=np.int64)
+                        answers[pending[i]] = hit[1]  # None: tombstone
+                        done.append(i)
+                if done:
+                    pending = np.delete(pending, done)
         if pending.size == 0:
             return answers.tolist()
         ph = ACTIVE.phases

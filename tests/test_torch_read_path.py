@@ -8,7 +8,9 @@ same refill count per scan, and every IOStats field equal after each
 step.  The two Pallas-probe cases hold the port's ``probe_plain`` against
 the reference's kernel (interpret mode) and its numpy filter.  Below them,
 the modules the range reads stand on: ``Memtable.scan``, the run helpers
-at the u64 extremes, and the manifest's reader pins.  All lanes are
+at the u64 extremes, and the manifest's reader pins.  Last, the point
+read's memtable probe through its key column and through a ``dict.get``
+per key, each held to the reference's scalar ``get``.  All lanes are
 integer: tolerance 0.
 """
 import dataclasses
@@ -27,6 +29,7 @@ from repro.core.bloom import BloomFilter as RefBloomFilter
 from repro.core.types import TOMBSTONE_LEN
 from repro.kernels.ops import bloom_probe_filter
 from repro_torch.core import iterator as port_iterator
+from repro_torch.core import memtable as port_memtable
 from repro_torch.core import run as port_run
 from repro_torch.core.types import IOStats
 from repro_torch.kernels import bloom, ops
@@ -734,3 +737,233 @@ def test_seek_lies_between_key_and_first_live_key(seed, views, async_):
         del both
     finally:
         port.close()
+
+
+# ------------------------------------------ the memtable probe's two branches
+PROBE_CASES = ["values_tombstones_overwrites", "active_and_immutable",
+               "repeated_keys", "u64_edges", "write_between_waves",
+               "after_flush_clear"]
+
+
+def probe_counts() -> dict:
+    return dict(port_memtable.MEMTABLE_PROBE)
+
+
+def force_probe_branch(monkeypatch, branch: str) -> None:
+    """Every probe through the key column, or every one through a
+    ``dict.get`` per key."""
+    if branch == "column":
+        monkeypatch.setattr(port_memtable, "_COLUMN_MIN_KEYS", 0)
+        monkeypatch.setattr(port_memtable, "_COLUMN_BUILD_RATIO", 1 << 40)
+    else:
+        monkeypatch.setattr(port_memtable, "_COLUMN_MIN_KEYS", 1 << 62)
+
+
+def wave_vs_scalar(port, reference, wave):
+    """``port.multi_get(wave)`` against the reference's ``get`` per key:
+    the same answers and the same IOStats delta."""
+    s_p, s_r = port.stats.snapshot(), reference.stats.snapshot()
+    got = port.multi_get(wave)
+    want = [reference.get(int(k)) for k in wave]
+    assert got == want
+    assert dataclasses.asdict(port.stats.delta(s_p)) == \
+        dataclasses.asdict(reference.stats.delta(s_r))
+    return got
+
+
+def both(dbs, fn):
+    for db in dbs:
+        fn(db)
+
+
+@pytest.mark.parametrize("branch", ["column", "dict"])
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_memtable_probe_branches_match_scalar_get(case, branch, monkeypatch):
+    """``multi_get`` through either branch of the memtable probe answers
+    as the reference's scalar ``get`` does, with its IOStats, wherever the
+    memtable decides the answer: a value, a tombstone, an overwrite, the
+    active memtable over an immutable one, a key repeated in the wave, keys
+    at the u64 extremes, a write between two waves, and the runs after a
+    flush's clear.  The counter shows the branch each probe took."""
+    force_probe_branch(monkeypatch, branch)
+    dbs = make_pair("garnering", 0.8, memtable_bytes=1 << 16,
+                    async_compaction=case == "active_and_immutable",
+                    stall_trigger=0, slowdown_trigger=0)
+    port, reference = dbs
+    before = probe_counts()
+    rng = np.random.default_rng(PROBE_CASES.index(case))
+    try:
+        both(dbs, lambda db: db.put_batch(list(range(0, 300, 2)),
+                                          [b"run%d" % k
+                                           for k in range(0, 300, 2)]))
+        both(dbs, lambda db: db.flush())
+        if case == "active_and_immutable":
+            for db in dbs:
+                assert db.wait_for_quiesce(60)
+                db._scheduler.pause()
+                for k in range(100, 160):
+                    db.put(k, b"imm%d" % k)
+                db.flush()                    # rotate, do not flush
+                db.put(107, b"active107")
+                db.delete(108)
+                db.put(400, b"active400")
+                assert len(db._imm) == 1 and db._imm[0].memtable.get(107)
+        elif case == "u64_edges":
+            edge = EDGE + [1, 2**63 + 1]
+            both(dbs, lambda db: db.put_batch(edge[:3],
+                                              [b"e%d" % k for k in edge[:3]]))
+            both(dbs, lambda db: db.flush())
+            both(dbs, lambda db: db.put_batch(edge[2:],
+                                              [b"m%d" % k for k in edge[2:]]))
+            both(dbs, lambda db: db.delete(0))
+        else:
+            for i, k in enumerate(rng.integers(0, 400, 200).tolist()):
+                if i % 5 == 0:
+                    both(dbs, lambda db: db.delete(k))
+                else:
+                    both(dbs, lambda db: db.put(k, b"mem%d.%d" % (k, i)))
+        wave = rng.integers(0, 450, 500).tolist()
+        if case == "repeated_keys":
+            wave = [int(k) for k in rng.choice(wave[:20], 500)]
+        elif case == "active_and_immutable":
+            wave += [107, 108, 400, 120, 107]
+        elif case == "u64_edges":
+            wave += EDGE + [1, 2, 2**63 + 1, 2**64 - 2] * 2
+        got = wave_vs_scalar(port, reference, wave)
+        if case == "repeated_keys":
+            assert len(set(wave)) < len(wave)
+            for k in set(wave):
+                assert len({got[i] for i, w in enumerate(wave) if w == k}) == 1
+        elif case == "active_and_immutable":
+            assert got[-5:] == [b"active107", None, b"active400", b"imm120",
+                                b"active107"]
+        elif case == "u64_edges":
+            at = dict(zip(wave, got))
+            assert at[2**64 - 1] == b"m%d" % (2**64 - 1)
+            assert at[2**63] == b"m%d" % 2**63 and at[0] is None
+            assert at[2**63 - 1] == b"e%d" % (2**63 - 1)
+        elif case == "write_between_waves":
+            both(dbs, lambda db: db.put(wave[0], b"late"))
+            both(dbs, lambda db: db.put_batch([wave[1], 10**6], [b"b", b"c"]))
+            both(dbs, lambda db: db.delete(wave[2]))
+            again = wave_vs_scalar(port, reference, wave + [10**6])
+            assert again[:3] == [b"late", b"b", None] and again[-1] == b"c"
+        elif case == "after_flush_clear":
+            both(dbs, lambda db: db.flush())
+            assert len(port.memtable) == 0
+            assert wave_vs_scalar(port, reference, wave) == got
+            both(dbs, lambda db: db.put(wave[3], b"fresh"))
+            assert wave_vs_scalar(port, reference, wave)[3] == b"fresh"
+        assert_same_stats(port, reference)
+    finally:
+        for db in dbs:
+            if case == "active_and_immutable":
+                db._scheduler.resume()
+            db.close()
+    after = probe_counts()
+    used, unused = (("column_keys", "dict_keys") if branch == "column"
+                    else ("dict_keys", "column_keys"))
+    assert after[used] > before[used]
+    assert after[unused] == before[unused]
+
+
+def test_memtable_probe_counter_follows_the_batch():
+    """Left to its rule: a large wave takes the column, which is built once
+    for two waves with no write between them; a single ``get`` takes the
+    dict; after a write, a batch small against the memtable takes the dict
+    until a large one has built the column again."""
+    port, reference = make_pair("garnering", 0.8, memtable_bytes=1 << 20)
+    keys = list(range(0, 3000, 3))
+    for db in (port, reference):
+        db.put_batch(keys, [b"v%d" % k for k in keys])
+    wave = np.random.default_rng(3).integers(0, 4000, 4096).tolist()
+
+    def delta(fn):
+        c0 = probe_counts()
+        fn()
+        return {k: v - c0[k] for k, v in probe_counts().items()}
+
+    want = {"column_keys": 4096, "dict_keys": 0, "column_builds": 1}
+    assert delta(lambda: wave_vs_scalar(port, reference, wave)) == want
+    want["column_builds"] = 0
+    assert delta(lambda: wave_vs_scalar(port, reference, wave)) == want
+    def single():
+        assert port.get(3) == reference.get(3) == b"v3"
+
+    assert delta(single) == {"column_keys": 0, "dict_keys": 1,
+                             "column_builds": 0}
+    small = wave[:200]                  # 200 keys against 1,000 in the memtable
+    assert delta(lambda: wave_vs_scalar(port, reference, small)) == {
+        "column_keys": 200, "dict_keys": 0, "column_builds": 0}
+    for db in (port, reference):
+        db.put(5000, b"w")
+    assert delta(lambda: wave_vs_scalar(port, reference, small)) == {
+        "column_keys": 0, "dict_keys": 200, "column_builds": 0}
+    assert delta(lambda: wave_vs_scalar(port, reference, wave)) == {
+        "column_keys": 4096, "dict_keys": 0, "column_builds": 1}
+    assert_same_stats(port, reference)
+
+
+@pytest.mark.parametrize("key_type", ["int", "uint64"])
+def test_memtable_key_column_per_generation(key_type):
+    """The key column is every key as uint64 ascending, whether the dict
+    holds Python ints or numpy uint64s, near 2^64 too; it is built once a
+    write generation (a frozen memtable builds it once), and the column
+    probe finds exactly the positions whose key is there."""
+    conv = int if key_type == "int" else np.uint64
+    rng = np.random.default_rng(11)
+    raw = [int(k) for k in rng.integers(0, 2**64 - 1, 400, dtype=np.uint64)]
+    raw += EDGE + [2**64 - 2, 5, 5]
+    mt = port_memtable.Memtable(1 << 30)
+    mt.put_batch([conv(k) for k in raw], [b"x"] * len(raw), 1)
+    want = sorted({int(k) for k in raw})
+    c0 = probe_counts()["column_builds"]
+    col = mt._key_column()[1]
+    assert col.dtype == np.uint64 and col.tolist() == want
+    assert mt._key_column()[1] is col
+    assert probe_counts()["column_builds"] == c0 + 1
+    mt.put(conv(7), 10_000, None)
+    col2 = mt._key_column()[1]
+    assert col2 is not col and col2.tolist() == sorted(set(want) | {7})
+    wave = np.array(raw[::3] + [1, 2**64 - 3, 6, 7, 2**63 + 1] +
+                    rng.integers(0, 2**64 - 1, 300, dtype=np.uint64).tolist(),
+                    dtype=np.uint64)
+    present = set(col2.tolist())
+    assert mt.probe(wave).tolist() == [i for i, k in enumerate(wave.tolist())
+                                       if k in present]
+    frozen = port_memtable.ImmutableMemtable(
+        mt, port_memtable.WriteAheadLog()).memtable
+    assert frozen._key_column()[1] is col2
+    assert probe_counts()["column_builds"] == c0 + 2
+    low = port_memtable.Memtable(1 << 30)         # keys past the column's end
+    low.put_batch(list(range(1000)), [b"s"] * 1000, 1)
+    assert low.probe(np.arange(30_000, dtype=np.uint64)).tolist() == \
+        list(range(1000))
+    mt2 = port_memtable.Memtable(1 << 20)
+    mt2.put(1, 1, b"a")
+    mt2.clear()
+    assert mt2._key_column()[1].tolist() == []
+    assert mt2.probe(wave).tolist() == []
+
+
+@given(st.lists(st.integers(0, 2**64 - 1), max_size=300),
+       st.lists(st.integers(0, 2**64 - 1), min_size=1, max_size=300),
+       st.integers(0, 2**32))
+@settings(max_examples=30, deadline=None)
+def test_memtable_column_probe_is_exact_membership(held, asked, seed):
+    """Property: the column pass returns exactly the positions of the keys
+    the memtable holds, repeats included, whatever the keys' bits."""
+    rng = np.random.default_rng(seed)
+    mt = port_memtable.Memtable(1 << 30)
+    mt.put_batch(held, [b"v"] * len(held), 1)
+    if held:
+        asked = asked + [held[int(i)] for i in
+                         rng.integers(0, len(held), len(asked))]
+    wave = np.array(asked, dtype=np.uint64)
+    mt._key_column()                    # built: the column branch from 96
+    pos = mt.probe(wave)
+    if wave.size >= 96:
+        assert pos.tolist() == [i for i, k in enumerate(asked)
+                                if mt.get(k) is not None]
+    else:
+        assert pos.tolist() == list(range(wave.size))
