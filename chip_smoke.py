@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch store's and serving path's main paths on one
-NVIDIA GPU and check them.
+"""The port's gate on the card: drive the repro_torch store's and
+serving path's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--entries N] [--seed S] [--phases P,...]
-                          [--src DIR]
+    python3 chip_smoke.py [--entries N] [--equiv-entries N] [--seed S]
+                          [--phases P,...]
 
 ``--phases`` runs a subset of
 kernels,attention,equivalence,db_bench,subsystems,durability,sharded,serve,
 families,train,mesh,dryrun,examples,policies (all by default; a subset ends
-in a {"partial": true} line instead of the kernels and ok lines); ``--src``
-imports repro_torch from another checkout's src/ (for example a parent
-commit's, to time two versions in one call).
+in a {"partial": true} line instead of the kernels and ok lines).  The
+store's speed is measured by ``portbench/`` (``BENCHMARK.json``), not here:
+the store phases (4-6b, 13) check answers and state and time nothing but
+the telemetry they check.
 
-Phases, one JSON line each; any failure raises and the exit code is not 0:
+Phases, one JSON line each (``at_s``: seconds since the start); any
+failure raises and the exit code is not 0:
   1. device   — the card's name and power limit;
   2. build    — nvcc builds every kernel of src/repro_torch/csrc; the
                 compiler's register and spill lines per kernel, and the
@@ -35,8 +37,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 level's, the merge also at an L0 run into a level and at
                 two flushes, each with the bytes its own design moves and
                 its device time by kernel; the bloom probe at the shapes a
-                read wave gives it (PROBE_SHAPES), warm and L2-cold, beside
-                builds of it that gather one position or all k at a time;
+                read wave gives it (PROBE_SHAPES), warm and L2-cold;
                 both attention kernels also at the model families' shapes
                 (``kernel_family`` lines: dh 256 at G 4 and 10, windowed
                 with a live band at 1,024 tokens over a window of 512,
@@ -49,7 +50,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 snapshot's release leaves no pin and frees device memory;
                 then the same on two stores with async compaction, a block
                 cache and a pinned L0 (``equivalence_async``), compared
-                after ``wait_for_quiesce``, cache hits and misses included;
+                after ``wait_for_quiesce``, cache hits and misses included,
+                builds and merges launched by the workers;
                 then (``equivalence_subsystems``) two stores with range
                 views, paranoid reads, a Telemetry and a same-seed
                 FaultInjector failing every 499th block read: equal view
@@ -59,54 +61,53 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   5. db_bench — fillrandom then readrandom at LevelDB's documented
                 defaults (16-byte keys, 100-byte values, 4 MiB write
                 buffer, 10 bits per key; 8M of 10M entries, ``reduced``,
-                as in phases 6 and 6b), every answer checked; the
-                load's last chunk under the profiler (device time by
-                kernel), and the size distribution of every bloom-build,
-                merge and probe launch; then, on the same store, seekrandom
-                (2,000 seeks) and YCSB workload E's scans (2,000 of 1..100
-                entries), every answer checked (the ``range`` line);
+                as in phases 6 and 6b), every answer checked, the tree's
+                digest kept for phase 6; then, on the same store,
+                seekrandom (2,000 seeks) and YCSB workload E's scans (2,000
+                of 1..100 entries), every answer checked against oracles
+                over the runs on the device and the memtable (the
+                ``range`` line);
   5b. subsystems — on phase 5's store (loaded here when phase 5 is not
-                asked for): the range view's full and incremental build
-                (s, device bytes, merge launches), phase 5's seeks and
-                scans through it (every answer equal to phase 5's, no
-                fallback); a Telemetry over eight of phase 5's waves (the
-                store's multi_get p50/p99 within one bucket of the host
-                clock; keys/s on and off in turns); the same waves with
-                paranoid reads (keys/s, at most one verify pass per run a
-                wave); faults (a block_read failure injected and cleared; a
-                corrupted block of the deepest run caught and named by a
-                paranoid read and by scrub); then YCSB workload A (2^19
-                operations, zipfian, over 1M keys) on an async store with
-                the online tuner beside an untuned twin: every read checked
-                and equal, knobs in bounds, every actuation at a boundary;
+                asked for): the range view's full and incremental build,
+                phase 5's seeks and scans through it (every answer equal to
+                phase 5's, no fallback); a Telemetry over eight of phase
+                5's waves (the store's multi_get p50/p99 within one bucket
+                of the host clock); the same waves with paranoid reads (at
+                most one verify pass per run a wave); faults (a block_read
+                failure injected and cleared; a corrupted block of the
+                deepest run caught and named by a paranoid read and by
+                scrub); then YCSB workload A (2^19 operations, zipfian,
+                over 1M keys) on an async store with the online tuner
+                beside an untuned twin: every read checked and equal, knobs
+                in bounds, every tick with the scheduler idle;
   6. durability — the db_bench load again on LevelDB's background
                 compaction thread, 8 MiB LRU block cache and a 16 MiB pinned
-                L0 (L0 at its trigger): the tree equals phase 5's, the same
-                read waves through the cache, every answer checked; then
+                L0 (L0 at its trigger): the tree and the write buffer equal
+                phase 5's, the same read waves through the cache (every
+                answer checked, blocks read equal to cache misses, hits and
+                misses together equal to phase 5's blocks read); then
                 500,000 more writes with rotations queued, a flush, 10,000
-                unsynced writes, crash() and recover(): every fsynced write
-                reads back, the unsynced tail is lost, recovery's drain,
-                WAL replay and scrub timed; the store kernels must launch
+                unsynced writes, crash() and recover() (whose scrub raises
+                on a bad block): every fsynced write reads back, the
+                unsynced tail is lost; the store kernels must launch
                 from the worker thread, and no job may be retried, given up
-                or leave the store degraded;
+                or leave the store degraded or a pin held;
   6b. sharded — the sharded facade: (a) phase 5's load on four shards
                 under one budget of four workers (the reference's
-                micro_dbbench sharded lane), timed until quiesced beside
-                phase 6's one-shard load, builds and merges from at least
-                two workers, then phase 5's waves, seeks and scans (and
-                scans across every splitter), every answer checked and
+                micro_dbbench sharded lane), builds and merges from at
+                least two workers, then phase 5's waves, seeks and scans
+                (and scans across every splitter), every answer checked and
                 held against phase 5's; (b) YCSB's hotspot (90% of 2^20
                 operations on the first tenth of 1M dense keys, half reads)
                 on four shards armed after a bulk load, beside a one-store
-                oracle: every read equal, at least one rebalance (device
-                bytes before, at the peak and after each), a snapshot from
-                before it unchanged, no pin leaked, then a crash and
-                recovery keeping every write and the routing epoch; (c)
-                smollm_135m's parameters through the delta-checkpoint
-                store on one shard and on two, each the first 2 of 30
-                layers (a depth cut for the call's time): the unchanged
-                leaves' chunks skipped at step 1, crash, recovery and
-                bit-exact restores;
+                oracle: every read equal, at least one rebalance, a
+                snapshot from before it unchanged, no pin leaked, then a
+                crash and recovery keeping every write and the routing
+                epoch; (c) smollm_135m's parameters through the
+                delta-checkpoint store on one shard and on two, each the
+                first 2 of 30 layers (a depth cut for the call's time): the
+                unchanged leaves' chunks skipped at step 1, crash, recovery
+                and bit-exact restores;
      kernel launches on phases 5, 5b, 6 and 6b, each store kernel's must
      be > 0;
   7. serve    — qwen3_4b at full width (random weights from the seed) over
@@ -114,9 +115,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 warm, mixed), hits, dedup and tokens checked, every kernel
                 launched on the path, AutumnKV's store on the reference's
                 knobs (two shards, async, cache, pin) drained and not
-                degraded, each shard's worker busy ms per wave; then the
-                smoke config served on the card and on the CPU at float32,
-                tokens equal;
+                degraded; then the smoke config served on the card and on
+                the CPU at float32, tokens equal;
   8. families — gemma3_1b at full size through phase 7's waves and checks,
                 then two 1,024-token prompts sharing a page with them (hit
                 equal to miss: the windowed rings kept whole in the state
@@ -141,12 +141,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 trainer (smollm SMOKE, a checkpoint every 5 steps through a
                 CheckpointStore on the card): train(20) equal by bits to
                 train(12) + crash + restore at 10 + train(10..20), the
-                store kernels launched (counted by thread), save and
+                store kernels launched (counted by thread), crash and
                 restore seconds.  Steps run
                 under torch.use_deterministic_algorithms with
                 CUBLAS_WORKSPACE_CONFIG=:4096:8, set at the start;
   10. mesh    — the same paths on a (1, 1) device mesh of the card
-                (launch.sharding's Sharder; ROADMAP A16a): (a) one warm wave
+                (launch.sharding's Sharder): (a) one warm wave
                 of phase 7's qwen3_4b (its weights and AutumnKV store, the
                 store drained) through ServeEngine(shard=...) and then
                 without the mesh, back to back: equal tokens, K3 and K4
@@ -159,7 +159,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 the mesh; then (d) K3's partials entry on each half of
                 phase 3's decode pages, merged as two ranks merge them,
                 against one K3 call over all of them (the same bits twice);
-  11. dryrun  — the dry-run (launch.dryrun; ROADMAP A16b) held against the
+  11. dryrun  — the dry-run (launch.dryrun) held against the
                 card: a child process that sees no card traces phase 9's
                 smollm_135m step and phase 7's qwen3_4b prefill and decode
                 steps on a fake (1, 1) mesh, and qwen3_4b's decode_32k on
@@ -170,8 +170,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 their work a step equal to the dry-run's, its predicted
                 peak within 0.98-1.02x of max_memory_allocated, the
                 roofline's max term beside the step's ms;
-  12. examples — the four twins of examples/*.py (examples/torch/; ROADMAP
-                A17) on the card in this process, their prints on stderr,
+  12. examples — the four twins of examples/*.py (examples/torch/) on the
+                card in this process, their prints on stderr,
                 each gated by its reference's outcome (answers, hits 0/4/6,
                 the resumed step), every kernel launched, no plain call;
   13. policies — the paper's six merge policies (the reference's
@@ -182,22 +182,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
                 memtable and a 64 KiB base with Monkey filters: the same
                 tree, IOStats and answers, the store kernels launched; (b)
                 phase 5's db_bench at LevelDB's geometry under each, at
-                1,000,000 entries (``reduced``): load
-                entries/s, compaction s, levels beside Eq. 6, runs and
-                their device bytes, write amplification, delayed
+                1,000,000 entries (``reduced``): levels beside Eq. 6, runs
+                and their device bytes, write amplification, delayed
                 compactions, a wave of live and deleted keys, a wave of
                 absent keys (runs touched and blocks read a key) and 2,000
                 scans of 10 (runs touched a scan), every answer checked;
                 each store freed before the next; (c) the orderings that
                 tests/test_system.py asserts, printed as found (findings,
                 not gates), and the store kernels' launches.
-The last line is {"ok": true, "device": {...}}.  Without a CUDA card the
-script exits non-zero before any phase runs.
+The last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
+without repro_torch and portbench beside it, the script exits 2 before any
+phase runs.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import itertools
 import json
@@ -209,22 +208,23 @@ import sys
 import threading
 import time
 import zlib
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, NVIDIA data sheet
-# The data sheet gives no integer ALU peak; the fp32 CUDA-core peak (67 TFLOP/s)
-# is the highest non-tensor rate, so ops over it stay a lower bound.
-ALU_OPS_PER_S = 67e12
+ROOT = Path(__file__).resolve().parent
+try:    # the benchmark's frozen peaks and counts: one copy for both
+    from portbench.roofline import (ALU_OPS_PER_S, HASH_OPS, HBM_BYTES_PER_S,
+                                    PROBE_OPS, nvidia_smi)
+    from portbench.trace import short_kernel_name
+    MISSING_IMPORT = None
+except ImportError as e:      # main reports it and exits 2
+    MISSING_IMPORT = e
 # Dense tensor-core peak for bf16 inputs (989 TFLOP/s, H100 SXM, NVIDIA
 # data sheet, without sparsity); float32 attention is held to the fp32
-# CUDA-core peak above, the rate for float32 arithmetic outside TF32.
+# CUDA-core peak, the rate for float32 arithmetic outside TF32.
 BF16_FLOPS_PER_S = 989e12
-HASH_OPS = 30                  # hash_pair: two mix32 chains, xors, or
-PROBE_OPS = 6                  # one bit test: mul, add, mod, shift, and, test
-ROOT = Path(__file__).resolve().parent
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "bloom_probe": ("src/repro_torch/csrc/bloom.cu",
@@ -274,13 +274,6 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = ALU_OPS_PER_S
@@ -397,10 +390,7 @@ def user_values(keys: np.ndarray, width: int = 100) -> list:
 def build_design_bytes(bloom, n: int, m_words: int, k: int, dev) -> int:
     """Bytes the bloom build's own design moves: the keys read twice, every
     position written and read back as an in-slice offset, the words and
-    the slice counters written (the first design: the keys and one atomic
-    OR of 4 bytes a key bit)."""
-    if not hasattr(bloom, "build_plan"):
-        return n * 8 + n * k * 4
+    the slice counters written."""
     plan = bloom.build_plan(n, m_words, k, *bloom.card_limits(dev))
     return (2 * n * 8 + 2 * n * k * plan.offset_bytes + m_words * 4
             + plan.n_slices * 16)
@@ -446,9 +436,10 @@ def bloom_build_row(torch, bloom, keys, bpk: float, label: str) -> dict:
 
 # The probe's shapes on the read path: (label, keys a launch probes,
 # keys of the run's filter, share of the probed keys that the run holds),
-# from phase 5's record of one read wave (``probe_record``: keys, words and
-# the keys the filter passed, less its false positives): L0 is empty when
-# the waves run, so a wave probes L1, L2, L3 and L4 in turn.
+# recorded once from every launch of one of phase 5's read waves (keys,
+# words and the keys the filter passed, less its false positives) when the
+# probe was redesigned: L0 is empty when the waves run, so a wave probes
+# L1, L2, L3 and L4 in turn.
 PROBE_SHAPES = (
     ("first run of a wave (L1)", 49_077, 144_632, 0.010),
     ("middle level (L3)", 44_753, 1_735_584, 0.125),
@@ -480,63 +471,9 @@ def cold_l2_ms(torch, fn, q, bits) -> tuple:
     return ms, copies
 
 
-# Builds of csrc/bloom.cu that differ from the shipped probe only in the
-# positions a key gathers together (the shipped kernel takes two): one at a
-# time, stopping at the first clear bit, and all k at once.
-PROBE_VARIANTS = {"early_exit": 1, "all_k": 8}
-
-
-def start_variant_builds(_build) -> dict:
-    """nvcc of every :data:`PROBE_VARIANTS` build of csrc/bloom.cu, started
-    beside the main build; none for a source without the variants (an
-    older checkout)."""
-    src = _build.CSRC / "bloom.cu"
-    if "BLOOM_PROBE_BATCH" not in src.read_text():
-        return {}
-    _build.BUILD.mkdir(parents=True, exist_ok=True)
-    started = {}
-    for name, batch in PROBE_VARIANTS.items():
-        out = _build.BUILD / f"libbloom_{name}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
-               f"-DBLOOM_PROBE_BATCH={batch}", "-o", str(out), str(src)]
-        started[name] = out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return started
-
-
-def load_variants(_build, started: dict):
-    """The variant libraries and their compiler lines, once built."""
-    libs, logs = {}, {}
-    argtypes, restype = _build.SIGNATURES["bloom"]["bloom_probe_launch"]
-    for name, (out, proc) in started.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the {name} probe:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        lib.bloom_probe_launch.argtypes = argtypes
-        lib.bloom_probe_launch.restype = restype
-        libs[name] = lib
-        logs[name] = ptxas_lines(log).get("bloom_probe_kernel")
-    return libs, logs
-
-
-def variant_probe(torch, bloom, lib, keys, bits, k):
-    """A variant build's probe, launched as ``bloom.probe_cuda`` launches
-    the kernel (outside the launch counts)."""
-    out = torch.empty(keys.numel(), dtype=torch.bool, device=keys.device)
-    rc = lib.bloom_probe_launch(
-        keys.data_ptr(), keys.numel(), bits.data_ptr(), bits.numel(), k,
-        out.data_ptr(), bloom.card_limits(keys.device)[1],
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"variant bloom_probe: CUDA error {rc}")
-    return out
-
-
-def probe_row(torch, bloom, q, bits, k, shape: str, variants=None) -> dict:
+def probe_row(torch, bloom, q, bits, k, shape: str) -> dict:
     """bloom_probe against probe_plain on ``q``; warm and L2-cold graph
-    replays, eager calls, and each variant build's times on the same
-    inputs."""
+    replays and eager calls."""
     got = bloom.probe_cuda(q, bits, k)
     want = bloom.probe_plain(q, bits, k)
     err = max_abs_err(torch, got, want)
@@ -553,22 +490,13 @@ def probe_row(torch, bloom, q, bits, k, shape: str, variants=None) -> dict:
         plain_ms=time_ms(torch, lambda: bloom.probe_plain(q, bits, k), 5),
         library_ms=None,
         **bound(n_q * 9 + words * 4, n_q * HASH_OPS + tests * PROBE_OPS))
-    for name, lib in (variants or {}).items():
-        def call(a, b, lib=lib):
-            return variant_probe(torch, bloom, lib, a, b, k)
-        got = call(q, bits)
-        row[f"{name}_max_abs_err"] = max_abs_err(torch, got, want)
-        row[f"{name}_ms"] = time_ms(torch, lambda: call(q, bits), 50,
-                                    graph=True)
-        row[f"{name}_ms_cold_l2"] = cold_l2_ms(torch, call, q, bits)[0]
-        err = max(err, row[f"{name}_max_abs_err"])
     if err:
         raise AssertionError(f"bloom_probe differs from its plain version "
                              f"at {shape}")
     return row
 
 
-def kernel_phase(torch, ops, bloom, merge, rng, dev, variants=None) -> dict:
+def kernel_phase(torch, ops, bloom, merge, rng, dev) -> dict:
     """The store's kernels against their plain versions at the main path's
     shapes; returns the headline row per kernel."""
     rows = {}
@@ -597,8 +525,7 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev, variants=None) -> dict:
                    ops.keys_to_device(rng.integers(0, 2**64 - 1, n_q // 2,
                                                    dtype=np.uint64), dev)])
     rows["bloom_probe"] = probe_row(torch, bloom, q, bits, k,
-                                    f"{n_q} keys, {m_words} words, k={k}",
-                                    variants)
+                                    f"{n_q} keys, {m_words} words, k={k}")
     emit({"phase": "kernel", "kernel": "bloom_probe", **rows["bloom_probe"]})
     del bits, q
     for label, n_q, n_filter, share in PROBE_SHAPES:
@@ -612,7 +539,7 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev, variants=None) -> dict:
         q = q[torch.randperm(n_q, device=dev)]
         row = probe_row(torch, bloom, q, bits, k,
                         f"{label}: {n_q} keys ({n_in} members), "
-                        f"{m_words} words, k={k}", variants)
+                        f"{m_words} words, k={k}")
         emit({"phase": "kernel", "kernel": "bloom_probe", **row})
         del bits, q
     del keys
@@ -655,7 +582,7 @@ def kernel_phase(torch, ops, bloom, merge, rng, dev, variants=None) -> dict:
                    # binary search of pairs from the split pass)
                    design_bytes=n * 24 + tiles * 2 * 16 * (
                        math.ceil(math.log2(min(na, nb) + 1)) + 1
-                       if tiles >= getattr(merge, "SPLIT_TILES", 0) else
+                       if tiles >= merge.SPLIT_TILES else
                        32 * (math.ceil(math.log(min(na, nb) + 1, 33)) + 1)),
                    **bound(n * 8 + n * 16, n * 4 + 5 * (
                        na * math.ceil(math.log2(nb + 1))
@@ -1000,7 +927,7 @@ def range_answers(store, starts, lengths, snapshot=None) -> list:
     return [scans, seeks, streamed, gets]
 
 
-def equivalence_run(torch, rt, rng, n_entries: int, cfg) -> tuple:
+def equivalence_run(rt, rng, n_entries: int, cfg) -> tuple:
     """Phase 4's seeded op sequence (puts, overwrites, deletes, batches,
     edge keys, a snapshot taken mid-load) on a CUDA store and a CPU store of
     ``cfg``, and the comparison of their trees, IOStats, memtables, point
@@ -1017,9 +944,8 @@ def equivalence_run(torch, rt, rng, n_entries: int, cfg) -> tuple:
                              keys[:5], rng.integers(0, 2**64 - 1, 50,
                                                     dtype=np.uint64)])
     lengths = rng.integers(1, 101, starts.size)
-    load_s, snaps = [], []
+    snaps = []
     for s in stores:
-        t0 = time.perf_counter()
         s.put_batch(keys[:n_entries // 2].tolist(), vals[:n_entries // 2])
         s.delete_batch(dels.tolist())
         s.flush()
@@ -1030,8 +956,6 @@ def equivalence_run(torch, rt, rng, n_entries: int, cfg) -> tuple:
         s.put_batch(keys[n_entries // 2:].tolist(), vals[n_entries // 2:])
         s.delete_batch(dels[::2].tolist())
         s.flush()
-        torch.cuda.synchronize()
-        load_s.append(time.perf_counter() - t0)
     batches = [rng.integers(0, space * 2, m, dtype=np.uint64).tolist()
                for m in (0, 1, 700, 65_536)] + [keys[:4096].tolist()]
     answers = [[s.multi_get(b) for b in batches] for s in stores]
@@ -1052,7 +976,6 @@ def equivalence_run(torch, rt, rng, n_entries: int, cfg) -> tuple:
     out = dict(runs=sum(len(lvl) for lvl in stores[0]._levels),
                levels=stores[0].num_levels_in_use,
                compactions=stats[0]["compactions"],
-               cuda_load_s=load_s[0], cpu_load_s=load_s[1],
                range_reads=stats[0]["range_reads"],
                scanned_entries=sum(len(a) for a in ranges[0][0]),
                snapshot_scanned_entries=sum(len(a) for a in snap_ranges[0][0]),
@@ -1078,7 +1001,7 @@ def equivalence_phase(torch, rt, rng, n_entries: int) -> dict:
     snapshot's release no pin is left and its runs leave the device."""
     cfg = rt.LSMConfig(memtable_bytes=64 << 10, base_level_bytes=256 << 10,
                        bits_per_key=10)
-    fields, stores, snaps = equivalence_run(torch, rt, rng, n_entries, cfg)
+    fields, stores, snaps = equivalence_run(rt, rng, n_entries, cfg)
     # the snapshot's runs: held on the device until the release
     held = [len(s.storage) for s in stores]
     torch.cuda.synchronize()
@@ -1110,7 +1033,7 @@ def quiesce(store, timeout_s: float = 600.0) -> None:
                              f"{timeout_s} s")
 
 
-def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
+def async_equivalence(rt, ops, rng, n_entries: int) -> dict:
     """Phase 4's second case: a CUDA store with async compaction, a block
     cache and a pinned L0 against a CPU store of the same configuration,
     after the same seeded operations and ``wait_for_quiesce``: bit-equal
@@ -1134,9 +1057,7 @@ def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
                                                     dtype=np.uint64)])
     lengths = rng.integers(1, 101, starts.size)
     ops.reset_launch_counts()
-    load_s = []
     for s in stores:
-        t0 = time.perf_counter()
         s.put_batch(keys[:space].tolist(), vals[:space])
         s.delete_batch(dels.tolist())
         s.flush()
@@ -1146,8 +1067,6 @@ def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
         s.delete_batch(dels[::2].tolist())
         s.flush()
         quiesce(s)
-        torch.cuda.synchronize()
-        load_s.append(time.perf_counter() - t0)
     load_launches = ops.launch_counts()
     batches = [rng.integers(0, space * 2, m, dtype=np.uint64).tolist()
                for m in (0, 1, 700, 65_536)] + [keys[:4096].tolist()]
@@ -1175,7 +1094,6 @@ def async_equivalence(torch, rt, ops, rng, n_entries: int) -> dict:
                        if k in ("async_compaction", "cache_bytes",
                                 "pin_l0_bytes", "cache_policy",
                                 "slowdown_trigger", "stall_trigger")},
-               cuda_load_s=load_s[0], cpu_load_s=load_s[1],
                bg_flushes=stats[0]["bg_flushes"],
                bg_compactions=stats[0]["bg_compactions"],
                cache=caches[0], health=health,
@@ -1305,8 +1223,8 @@ def fill_workload(seed: int, n_entries: int):
 def read_waves(seed: int, sorted_keys, live, deleted, n_waves: int = 32,
                wave: int = 65_536):
     """readrandom's waves, from the seed alone (phases 5 and 6 read the
-    same keys): half live keys, a quarter absent, a quarter deleted; wave
-    0 warms up.  Yields (keys, the answers they must get)."""
+    same keys): half live keys, a quarter absent, a quarter deleted.
+    Yields (keys, the answers they must get)."""
     rng = np.random.default_rng([seed, 6])
     for _ in range(n_waves + 1):
         parts = [rng.choice(live, wave // 2),
@@ -1325,19 +1243,6 @@ def tree_digest(store) -> list:
     checksums (one read-back a run)."""
     return [[[len(r), zlib.crc32(r.block_crcs.cpu().numpy().tobytes())]
              for r in lvl] for lvl in store._levels]
-
-
-def short_kernel_name(name: str) -> str:
-    """``bloom_bucket_kernel`` from a profiler's demangled kernel name such
-    as ``void (anonymous namespace)::bloom_bucket_kernel<unsigned short>(
-    long const*, ...)``; copies and fills keep their own names."""
-    if name.startswith(("Memcpy", "Memset")):
-        return name
-    name = name.replace("(anonymous namespace)::", "")
-    if name.startswith("void "):
-        name = name[5:]
-    name = re.split(r"[<(]", name, maxsplit=1)[0]
-    return name.rsplit("::", 1)[-1] or name
 
 
 def profile_window(torch, fn, by_kernel: bool = False) -> dict:
@@ -1382,47 +1287,12 @@ def profile_window(torch, fn, by_kernel: bool = False) -> dict:
     return out
 
 
-# the device kernels of each store kernel's wrapper, this design's and the
-# first design's, by short name
+# the device kernels of each store kernel's wrapper, by short name
 STORE_KERNEL_FUNCTIONS = {
-    "bloom_build": ("bloom_bucket_kernel", "bloom_set_kernel",
-                    "bloom_build_kernel"),
-    "merge_pair": ("merge_split_kernel", "merge_tile_kernel",
-                   "merge_pair_kernel"),
+    "bloom_build": ("bloom_bucket_kernel", "bloom_set_kernel"),
+    "merge_pair": ("merge_split_kernel", "merge_tile_kernel"),
     "bloom_probe": ("bloom_probe_kernel",),
 }
-
-
-def size_distribution(sizes) -> dict:
-    """Count, sum, quantiles and a decade histogram of launch sizes."""
-    if not sizes:
-        return dict(count=0)
-    arr = np.asarray(sizes, dtype=np.int64)
-    decades = {}
-    for v in arr.tolist():
-        lo = 10 ** max(0, len(str(v)) - 1)
-        label = f"[{lo:.0e}, {lo * 10:.0e})"
-        decades[label] = decades.get(label, 0) + 1
-    return dict(count=int(arr.size), sum=int(arr.sum()), min=int(arr.min()),
-                p50=float(np.percentile(arr, 50)),
-                p90=float(np.percentile(arr, 90)), max=int(arr.max()),
-                decades=dict(sorted(decades.items(),
-                                    key=lambda kv: float(kv[0][1:6]))))
-
-
-def launch_size_report(ops) -> dict:
-    """The distribution of the elements of every bloom_build and
-    merge_pair launch since the last reset (keys; na + nb and the smaller
-    side)."""
-    if not hasattr(ops, "launch_sizes"):
-        return {}
-    sizes = ops.launch_sizes()
-    pairs = sizes["merge_pair"]
-    return dict(bloom_build_keys=size_distribution(sizes["bloom_build"]),
-                merge_pair_elements=size_distribution(
-                    [a + b for a, b in pairs]),
-                merge_pair_smaller_side=size_distribution(
-                    [min(a, b) for a, b in pairs]))
 
 
 def seek_oracle(run_keys, mem_keys, mem_items, starts) -> list:
@@ -1441,36 +1311,15 @@ def seek_oracle(run_keys, mem_keys, mem_items, starts) -> list:
     return out
 
 
-@contextmanager
-def counting_refills(iterator_module):
-    """Counts MergingIterator refills inside the block."""
-    cls = iterator_module.MergingIterator
-    refill, count = cls._refill, [0]
-
-    def counted(self):
-        count[0] += 1
-        return refill(self)
-
-    cls._refill = counted
-    try:
-        yield count
-    finally:
-        cls._refill = refill
-
-
-def range_phase(torch, rt, ops, store, live, deleted, rng,
-                n_seeks: int = 2000, n_scans: int = 2000,
-                record=None) -> dict:
+def range_phase(ops, store, live, deleted, rng, n_seeks: int = 2000,
+                n_scans: int = 2000, record=None) -> dict:
     """seekrandom (db_bench) and short scans (YCSB workload E: lengths
     uniform in 1..100) on the loaded store; start keys half at live keys,
     a quarter at deleted keys, a quarter uniform over u64.  Every scan is
     held against the next live keys and their values, every seek against
     :func:`seek_oracle` over the runs' keys as they lie on the device and
-    the memtable; 50 more scans run under the profiler.  ``record`` (a
-    dict) gets the draws and the checked answers, for phase 5b."""
-    if not hasattr(store, "scan"):
-        return dict(phase="range", skipped="this checkout has no range reads")
-
+    the memtable.  ``record`` (a dict) gets the draws and the checked
+    answers, for phases 5b and 6b."""
     def draw(n):
         return np.concatenate([
             rng.choice(live, n // 2), rng.choice(deleted, n // 4),
@@ -1478,18 +1327,9 @@ def range_phase(torch, rt, ops, store, live, deleted, rng,
 
     seek_starts, scan_starts = draw(n_seeks), draw(n_scans)
     lengths = rng.integers(1, 101, n_scans)
-    st0 = store.stats
-    t = time.perf_counter()
     got_seeks = [store.seek(int(a)) for a in seek_starts.tolist()]
-    seek_s = time.perf_counter() - t
-    st1 = store.stats
-    scan_ms, got_scans = [], []
-    with counting_refills(rt.core.iterator) as refills:
-        for a, n in zip(scan_starts.tolist(), lengths.tolist()):
-            t = time.perf_counter()
-            got_scans.append(store.scan(a, n))
-            scan_ms.append((time.perf_counter() - t) * 1e3)
-    per_scan = store.stats.delta(st1)
+    got_scans = [store.scan(a, n) for a, n in zip(scan_starts.tolist(),
+                                                  lengths.tolist())]
     # the oracles
     runs = [r for lvl in store._levels for r in lvl if len(r)]
     run_keys = np.unique(np.concatenate([ops.keys_from_device(r.keys)
@@ -1503,35 +1343,12 @@ def range_phase(torch, rt, ops, store, live, deleted, rng,
         want_keys = live[a:a + n]
         want = list(zip(want_keys.tolist(), user_values(want_keys)))
         bad_scans += got != want
-    scanned = sum(len(g) for g in got_scans)
-    # 50 more scans under the profiler: idle share and copies per scan
-    prof_starts, prof_lens = draw(50), rng.integers(1, 101, 50)
-    prof = profile_window(torch, lambda: [
-        store.scan(int(a), int(n)) for a, n in zip(prof_starts, prof_lens)])
-    copies = prof.pop("copies", {})
     out = dict(
-        phase="range", seeks=n_seeks, seek_s=seek_s,
-        seeks_per_s=n_seeks / seek_s,
-        seek_ms_mean=seek_s / n_seeks * 1e3,
-        seek_stats={k: v for k, v in dataclasses.asdict(
-            st1.delta(st0)).items() if v},
-        scans=n_scans, scan_s=sum(scan_ms) / 1e3,
-        scans_per_s=n_scans / (sum(scan_ms) / 1e3),
-        scanned_entries=scanned,
-        entries_per_s=scanned / (sum(scan_ms) / 1e3),
-        scan_ms_p50=float(np.percentile(scan_ms, 50)),
-        scan_ms_p99=float(np.percentile(scan_ms, 99)),
-        per_scan=dict(blocks_read=per_scan.blocks_read / n_scans,
-                      runs_touched=per_scan.runs_touched_range / n_scans,
-                      refills=refills[0] / n_scans),
+        phase="range", seeks=n_seeks, scans=n_scans,
+        scanned_entries=sum(len(g) for g in got_scans),
         levels_in_use=store.num_levels_in_use, runs=len(runs),
         memtable_entries=int(mem_keys.size),
-        profile_50_scans=prof,
-        d2h_copies_per_scan=sum(c for n, c in copies.items()
-                                if "DtoH" in n) / 50,
-        h2d_copies_per_scan=sum(c for n, c in copies.items()
-                                if "HtoD" in n) / 50,
-        copies_50_scans=copies, wrong_seeks=bad_seeks, wrong_scans=bad_scans)
+        wrong_seeks=bad_seeks, wrong_scans=bad_scans)
     if bad_seeks or bad_scans:
         emit(out)
         raise AssertionError(f"range reads: {bad_seeks} wrong seeks, "
@@ -1539,42 +1356,8 @@ def range_phase(torch, rt, ops, store, live, deleted, rng,
     if record is not None:
         record.update(seek_starts=seek_starts, scan_starts=scan_starts,
                       lengths=lengths, seeks=got_seeks,
-                      want_seeks=want_seeks, scans=got_scans,
-                      prof_starts=prof_starts, prof_lens=prof_lens)
+                      want_seeks=want_seeks, scans=got_scans)
     return out
-
-
-@contextmanager
-def recording_probes(torch, bloom):
-    """Records every bloom_probe launch inside the block: keys, filter
-    words, k and the keys the filter passed (one wait each, outside any
-    timed or profiled window)."""
-    record, probe = [], bloom.probe_cuda
-
-    def recorded(keys, bits, k):
-        out = probe(keys, bits, k)
-        record.append(dict(keys=keys.numel(), words=bits.numel(), k=k,
-                           maybe=int(out.sum())))
-        return out
-
-    bloom.probe_cuda = recorded
-    try:
-        yield record
-    finally:
-        bloom.probe_cuda = probe
-
-
-def probe_size_report(ops) -> dict:
-    """Every bloom_probe launch since the last reset, by filter size:
-    launches and the keys each probed (a run's filter keeps its size while
-    the store is read)."""
-    by_words = {}
-    for n, words in ops.launch_sizes().get("bloom_probe", []):
-        by_words.setdefault(words, []).append(n)
-    return {str(w): dict(launches=len(ns), keys_min=min(ns),
-                         keys_p50=float(np.percentile(ns, 50)),
-                         keys_max=max(ns))
-            for w, ns in sorted(by_words.items())}
 
 
 def run_device_bytes(store) -> int:
@@ -1594,160 +1377,90 @@ DB_BENCH = dict(policy="garnering", T=2.0, c=0.8, memtable_bytes=4 << 20,
 DB_BENCH_ENTRIES, DB_BENCH_FULL = 8_000_000, 10_000_000
 
 
-def dbbench_phase(torch, rt, ops, bloom, rng, seed: int,
-                  n_entries: int, keep=None) -> dict:
-    """fillrandom then readrandom at LevelDB's db_bench defaults, then
-    seekrandom and short scans on the same store (``range_phase``).
-    ``keep`` (a dict) gets the store, its key sets and the range reads'
-    draws and answers, for phase 5b."""
-    cfg = rt.LSMConfig(**DB_BENCH)
-    store = rt.LSMStore(cfg)   # cuda:0
-    torch.cuda.reset_peak_memory_stats()
-    keys, deleted = fill_workload(seed, n_entries)
-    sorted_keys = np.sort(keys)
-    # time inside compactions and inside flush's run build, device synced
-    spent = {"compaction": 0.0, "flush_build": 0.0}
-
-    def timed(name, fn):
-        def wrapper(*args):
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t
-            return out
-        return wrapper
-
-    store._apply = timed("compaction", store._apply)
-    store.memtable.to_run = timed("flush_build", store.memtable.to_run)
-    ops.reset_launch_counts()
-    # every chunk but the last timed; the last, which flushes and compacts
-    # like the others, under the profiler for the load's device split
+def fill(store, keys: np.ndarray) -> None:
+    """db_bench fillrandom's writes of ``keys``, in put_batch calls of at
+    most 500,000, each value naming its key."""
     chunk = min(500_000, -(-keys.size // 2))
-    starts = list(range(0, keys.size, chunk))
-    t0 = time.perf_counter()
-    for i in starts[:-1]:
+    for i in range(0, keys.size, chunk):
         kc = keys[i:i + chunk]
         store.put_batch(kc.tolist(), user_values(kc))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    load_stats = store.stats
-    load_spent = dict(spent)
-    kc = keys[starts[-1]:]
-    load_profile = profile_window(torch, lambda: store.put_batch(
-        kc.tolist(), user_values(kc)), by_kernel=True)
-    per_kernel = load_profile.get("device_ms_by_kernel", {})
-    load_profile["store_kernels_ms"] = {
-        name: sum(per_kernel.get(f, 0.0) for f in fns)
-        for name, fns in STORE_KERNEL_FUNCTIONS.items()}
+
+
+def dbbench_phase(torch, rt, ops, rng, seed: int, n_entries: int,
+                  keep=None) -> dict:
+    """fillrandom then readrandom at LevelDB's db_bench defaults, every
+    answer checked, then seekrandom and short scans on the same store
+    (``range_phase``).  ``keep`` (a dict) gets the store, its key sets and
+    the range reads' draws and answers, for phase 5b."""
+    cfg = rt.LSMConfig(**DB_BENCH)
+    store = rt.LSMStore(cfg)   # cuda:0
+    keys, deleted = fill_workload(seed, n_entries)
+    sorted_keys = np.sort(keys)
+    ops.reset_launch_counts()
+    fill(store, keys)
     store.delete_batch(deleted.tolist())
     torch.cuda.synchronize()
     digest = tree_digest(store)
-    launch_sizes = launch_size_report(ops)
     live = np.setdiff1d(keys, deleted)
-    wave = 65_536
     before = store.stats
-    wave_s, checked = [], 0
+    checked = 0
     for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
                                              deleted)):
-        with recording_probes(torch, bloom) if w == 0 else nullcontext() \
-                as record:       # wave 0 warms up, untimed
-            t = time.perf_counter()
-            got = store.multi_get(q.tolist())
-            dt = time.perf_counter() - t
-        if w == 0:
-            probe_record = record
+        got = store.multi_get(q.tolist())
         if got != want:
             bad = sum(g != x for g, x in zip(got, want))
             raise AssertionError(f"wave {w}: {bad} wrong answers")
-        if w:
-            wave_s.append(dt)
-            checked += q.size
+        checked += q.size
     read_stats = store.stats.delta(before)
-    # three more checked waves under the profiler: the device's idle share
-    waves = [(rng.choice(live, wave // 2), rng.choice(deleted, wave // 2))
-             for _ in range(3)]
-    answers = []
-    read_profile = profile_window(torch, lambda: answers.extend(
-        store.multi_get(np.concatenate(w).tolist()) for w in waves))
-    if answers != [user_values(lv) + [None] * (wave // 2) for lv, _ in waves]:
-        raise AssertionError("wrong answers in the profiled waves")
-    probe_sizes = probe_size_report(ops)
+    # three more checked waves, of live and deleted keys alone
+    wave = 65_536
+    for _ in range(3):
+        lv, dl = rng.choice(live, wave // 2), rng.choice(deleted, wave // 2)
+        if store.multi_get(np.concatenate([lv, dl]).tolist()) \
+                != user_values(lv) + [None] * (wave // 2):
+            raise AssertionError("wrong answers in the live and deleted "
+                                 "waves")
+        checked += wave
     record = {}
-    ranges = range_phase(torch, rt, ops, store, live, np.sort(deleted), rng,
+    ranges = range_phase(ops, store, live, np.sort(deleted), rng,
                          record=record)
-    run_bytes = run_device_bytes(store)
     out = dict(
         phase="db_bench", entries=int(keys.size), deleted=int(deleted.size),
         reduced=reduced_entries(n_entries, DB_BENCH_FULL),
         value_bytes=100, key_bytes=cfg.key_bytes,
-        config=dataclasses.asdict(cfg), load_timed_entries=starts[-1],
-        load_s=load_s, load_entries_per_s=starts[-1] / load_s,
-        compaction_s=load_spent["compaction"],
-        flush_build_s=load_spent["flush_build"],
-        host_write_path_s=load_s - load_spent["compaction"]
-        - load_spent["flush_build"],
-        compaction_mb_per_s=load_stats.bytes_compacted / 1e6
-        / load_spent["compaction"] if load_spent["compaction"] else None,
-        load_profile_last_chunk=dict(entries=int(kc.size), **load_profile),
-        launch_sizes=launch_sizes, probe_launch_sizes=probe_sizes,
-        probe_record=probe_record,
-        bytes_compacted=load_stats.bytes_compacted,
-        write_amp=load_stats.write_amplification(),
-        read_keys=checked, read_s=sum(wave_s),
-        multi_get_keys_per_s=checked / sum(wave_s),
-        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
-        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
-        read_profile_3_waves=read_profile,
+        config=dataclasses.asdict(cfg), read_keys=checked,
+        read_blocks_read=read_stats.blocks_read,
         levels_in_use=store.num_levels_in_use,
         level_summary=store.level_summary(),
-        run_bytes_on_device=run_bytes,
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
-        read_stats={k: v for k, v in dataclasses.asdict(read_stats).items()
-                    if v},
         tree_digest=digest, memtable_entries=len(store.memtable))
     emit(out)
     emit(ranges)
     if keep is not None:
         keep.update(store=store, keys=keys, deleted=deleted, live=live,
-                    sorted_keys=sorted_keys, range_record=record,
-                    range_line=ranges)
+                    sorted_keys=sorted_keys, range_record=record)
     return out
 
 
 # ------------------------------------------------------------ phase 5b
-def storage_bytes(tensors, exclude=()) -> int:
-    """Device bytes of the storages of ``tensors``, each counted once,
-    leaving out the storages of ``exclude``."""
-    skip = {t.untyped_storage().data_ptr() for t in exclude}
-    seen = {}
-    for t in tensors:
-        st = t.untyped_storage()
-        if st.data_ptr() not in skip:
-            seen[st.data_ptr()] = st.nbytes()
-    return sum(seen.values())
-
-
 def nearest_rank(samples, p: float) -> float:
     """The histogram's percentile definition (nearest rank) on samples."""
     s = sorted(samples)
     return s[max(1, math.ceil(len(s) * p / 100.0)) - 1]
 
 
-def timed_waves(torch, store, waves, modes, set_mode) -> dict:
-    """Each wave once in each mode, the modes' order alternating from wave
-    to wave; every answer checked.  Host seconds by mode."""
-    secs = {m: [] for m in modes}
+def checked_waves(store, waves, label: str) -> list:
+    """Each wave's multi_get, every answer checked; the host seconds of
+    each call."""
+    secs = []
     for w, (q, want) in enumerate(waves):
         keys = q.tolist()       # outside the clock, as outside the span
-        for m in (modes if w % 2 == 0 else modes[::-1]):
-            set_mode(m)
-            t = time.perf_counter()
-            got = store.multi_get(keys)
-            secs[m].append(time.perf_counter() - t)
-            if got != want:
-                raise AssertionError(f"wave {w} ({m}): "
-                                     f"{sum(g != x for g, x in zip(got, want))}"
-                                     f" wrong answers")
+        t = time.perf_counter()
+        got = store.multi_get(keys)
+        secs.append(time.perf_counter() - t)
+        if got != want:
+            raise AssertionError(f"wave {w} ({label}): "
+                                 f"{sum(g != x for g, x in zip(got, want))}"
+                                 f" wrong answers")
     return secs
 
 
@@ -1762,58 +1475,50 @@ def zipf_items(rng, n_items: int, n: int, theta: float = 0.99):
     return rng.permutation(n_items)[ranks]
 
 
-def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
+def tuner_part(rt, seed: int, n_keys: int = 1_000_000,
                n_ops: int = 1 << 19, batch: int = 4096,
                interval_ops: int = 16_384):
     """YCSB workload A (50% reads, 50% updates, zipfian) over a 1M-key
     load on a tuned async store (phase 6's knobs, a Telemetry and an
     OnlineTuner) and an untuned twin: every read checked against the
     written values and equal between the two; knobs within KNOB_BOUNDS,
-    every actuation with the scheduler idle.  Reads and updates go in
-    batches of ``batch`` operations (a batch's reads, then its updates),
-    values 100 bytes (YCSB ``fieldcount=1``, ``fieldlength=100``).
-    Returns the phase line's fields and the gates that failed."""
+    every tick (the tuner's only actuation point) with the scheduler idle.
+    Reads and updates go in batches of ``batch`` operations (a batch's
+    reads, then its updates), values 100 bytes (YCSB ``fieldcount=1``,
+    ``fieldlength=100``).  Returns the phase line's fields and the gates
+    that failed."""
+    class BoundaryTuner(rt.core.OnlineTuner):
+        """Counts the ticks that came while background work was queued or
+        running."""
+        off_boundary = 0
+
+        def tick(self, store):
+            if not store._scheduler.idle():
+                self.off_boundary += 1
+            return super().tick(store)
+
     cfg = rt.LSMConfig(**DB_BENCH, async_compaction=True,
                        compaction_workers=1, cache_bytes=8 << 20,
                        cache_policy="lru", pin_l0_bytes=16 << 20)
     tel = rt.core.Telemetry()
     # a tick every 16,384 writes (8 batches): 16 samples a window, so the
     # tuner decides on every one
-    tun = rt.core.OnlineTuner(interval_ops=interval_ops, min_window_ops=16)
+    tun = BoundaryTuner(interval_ops=interval_ops, min_window_ops=16)
     tuned = rt.LSMStore(dataclasses.replace(cfg, telemetry=tel, tuner=tun))
     twin = rt.LSMStore(cfg)
-    actuations, tick_ms = [], []
-    actuators, tick = tuned._tuning_actuators, tun.tick
-
-    def recorded_actuators():
-        return {k: (get, lambda v, k=k, put=put: (
-            actuations.append((k, v, tuned._scheduler.idle())), put(v)))
-            for k, (get, put) in actuators().items()}
-
-    def timed_tick(store):
-        t = time.perf_counter()
-        try:
-            return tick(store)
-        finally:
-            tick_ms.append((time.perf_counter() - t) * 1e3)
-
-    tuned._tuning_actuators, tun.tick = recorded_actuators, timed_tick
     rng = np.random.default_rng([seed, 10])
     keys = np.unique(rng.integers(0, 2**64 - 1, n_keys + n_keys // 100,
                                   dtype=np.uint64))
     keys = rng.permutation(keys)[:n_keys]
     salt = np.zeros(n_keys, dtype=np.int64)
-    t = time.perf_counter()
     for s in (tuned, twin):
         for i in range(0, n_keys, 250_000):
             kc = keys[i:i + 250_000]
             s.put_batch(kc.tolist(), salted_values(kc, 0))
         s.flush()
         quiesce(s)
-    load_s = time.perf_counter() - t
     items = zipf_items(rng, n_keys, n_ops)
     is_read = rng.random(n_ops) < 0.5
-    secs = {"tuned": 0.0, "twin": 0.0}
     wrong = unequal = 0
     for b, i in enumerate(range(0, n_ops, batch)):
         it, rd = items[i:i + batch], is_read[i:i + batch]
@@ -1822,10 +1527,8 @@ def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
         vals = salted_values(uk, 1 + b % 255)
         got = {}
         for name, s in (("tuned", tuned), ("twin", twin)):
-            t = time.perf_counter()
             got[name] = s.multi_get(rk.tolist())
             s.put_batch(uk.tolist(), vals)
-            secs[name] += time.perf_counter() - t
         salt[it[~rd]] = 1 + b % 255
         wrong += sum(g != w for g, w in zip(got["tuned"], want))
         unequal += sum(a != c for a, c in zip(got["tuned"], got["twin"]))
@@ -1845,25 +1548,17 @@ def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
     for s in (tuned, twin):
         s.close()
     out = dict(
-        keys=n_keys, ops=n_ops, batch=batch, load_s_both=load_s,
-        ops_per_s={k: n_ops / v for k, v in secs.items()},
-        ticks=tun.ticks, decisions=len(tun.steps), tuner_step_events=steps_ev,
-        knob_trajectory=tun.knob_trajectory(),
-        tick_host_ms=dict(mean=float(np.mean(tick_ms)) if tick_ms else None,
-                          max=float(max(tick_ms)) if tick_ms else None,
-                          n=len(tick_ms)),
-        actuations=len(actuations),
-        actuations_not_idle=sum(1 for a in actuations if not a[2]),
+        keys=n_keys, ops=n_ops, batch=batch, ticks=tun.ticks,
+        decisions=len(tun.steps), tuner_step_events=steps_ev,
+        ticks_off_boundary=tun.off_boundary,
         out_of_bounds=out_of_bounds, wrong_reads=int(wrong),
-        unequal_reads=int(unequal), final_wrong=final,
-        final_policy=dict(T=tuned.policy.T, c=tuned.policy.c),
-        health=health)
+        unequal_reads=int(unequal), final_wrong=final, health=health)
     bad = []
     if wrong or unequal or any(final):
         bad.append("wrong or unequal reads")
     if not tun.steps or steps_ev != len(tun.steps):
         bad.append("no tuner decisions")
-    if out_of_bounds or out["actuations_not_idle"]:
+    if out_of_bounds or tun.off_boundary:
         bad.append("knob out of bounds or actuated off a boundary")
     if any(h != dict(degraded=False, bg_retries=0, bg_gave_up=0)
            for h in health):
@@ -1872,161 +1567,87 @@ def tuner_part(torch, rt, seed: int, n_keys: int = 1_000_000,
 
 
 def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
-    """Phase 5b, on phase 5's store (its load, 5 levels at 10M): range views
-    (full and incremental build; phase 5's seeks and scans through the
-    view, every answer equal to phase 5's), telemetry (the store's own
-    multi_get percentiles beside the host clock; keys/s with it on and
-    off), paranoid reads (answers, keys/s, verify passes per run), faults
-    (an injected block_read failure; a corrupted block caught and named),
-    and the online tuner on YCSB workload A beside an untuned twin."""
+    """Phase 5b, on phase 5's store: range views (full and incremental
+    build; phase 5's seeks and scans through the view, every answer equal
+    to phase 5's, none falling back), telemetry (the store's own multi_get
+    p50 and p99 within one bucket of the host clock), paranoid reads
+    (answers, at most one verify pass per run a wave), faults (an injected
+    block_read failure; a corrupted block caught and named), and the
+    online tuner on YCSB workload A beside an untuned twin."""
     from repro_torch.core import run as run_mod
     from repro_torch.core.telemetry import bucket_of
-    t_phase = time.perf_counter()
     store, rec = ctx["store"], ctx["range_record"]
-    for obj, name in ((store, "_apply"), (store.memtable, "to_run")):
-        vars(obj).pop(name, None)      # phase 5's timing wrappers
     ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     bad = []
     # ---- views: the full build
     store.config.use_range_views = True
-    t = time.perf_counter()
     view = store.refresh_range_view()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
     k2_full = ops.launch_counts()["merge_pair"]
-    run_cols = [c for lvl in store._levels for r in lvl
-                for c in (r.keys, r.block_of)]
-    view_bytes = storage_bytes(
-        [view.keys, view.src, view.rows, view.live, view.blocks]
-        + [c for cols in store._view_cache.values() for c in cols],
-        exclude=run_cols)
     # phase 5's seeks and scans, through the view
     st0 = store.stats
-    t = time.perf_counter()
     got_seeks = [store.seek(int(a)) for a in rec["seek_starts"].tolist()]
-    seek_s = time.perf_counter() - t
     st1 = store.stats
-    scan_ms, got_scans = [], []
-    for a, n in zip(rec["scan_starts"].tolist(), rec["lengths"].tolist()):
-        t = time.perf_counter()
-        got_scans.append(store.scan(a, n))
-        scan_ms.append((time.perf_counter() - t) * 1e3)
+    got_scans = [store.scan(a, n) for a, n in zip(rec["scan_starts"].tolist(),
+                                                  rec["lengths"].tolist())]
     per_scan = store.stats.delta(st1)
     wrong_seeks = sum(g != w for g, w in zip(got_seeks, rec["seeks"]))
     wrong_scans = sum(g != w for g, w in zip(got_scans, rec["scans"]))
-    prof = profile_window(torch, lambda: [
-        store.scan(int(a), int(n))
-        for a, n in zip(rec["prof_starts"], rec["prof_lens"])])
-    copies = prof.pop("copies", {})
-    n_scans = len(scan_ms)
-    line5 = ctx["range_line"]
     # ---- the incremental build after one more flush, under telemetry
     tel = rt.core.Telemetry()
     store.config.telemetry = tel
     k2 = ops.launch_counts()["merge_pair"]
-    t = time.perf_counter()
     store.flush()
-    torch.cuda.synchronize()
-    flush_s = time.perf_counter() - t
-    t = time.perf_counter()
     view2 = store.refresh_range_view()
-    torch.cuda.synchronize()
-    inc_s = time.perf_counter() - t
     recheck = [store.scan(int(a), int(n)) for a, n in zip(
         rec["scan_starts"][:200].tolist(), rec["lengths"][:200].tolist())]
     wrong_after_flush = sum(g != w for g, w in zip(recheck, rec["scans"]))
     views = dict(
         phase="subsystems", part="views", entries=len(view),
-        runs=len(view.runs), full_build_s=build_s,
-        full_build_merge_pair_launches=k2_full,
-        view_device_bytes=view_bytes,
-        run_device_bytes=storage_bytes(
-            [c for lvl in store._levels for r in lvl
-             for c in (r.keys, r.seqs, r.vlens, r.vals, r.block_of,
-                       r.fence_keys, r.block_crcs, r.bloom.bits)]),
-        incremental=dict(flush_s=flush_s, build_s=inc_s,
-                         levels_rebuilt=view2.levels_built,
+        runs=len(view.runs), full_build_merge_pair_launches=k2_full,
+        incremental=dict(levels_rebuilt=view2.levels_built,
                          levels=sum(1 for lvl in store._levels if lvl),
                          runs=len(view2.runs),
                          merge_pair_launches=ops.launch_counts()
                          ["merge_pair"] - k2,
                          rescanned=len(recheck),
                          wrong=wrong_after_flush),
-        seeks=len(got_seeks), seeks_per_s=len(got_seeks) / seek_s,
-        seek_ms_mean=seek_s / len(got_seeks) * 1e3,
-        scans=n_scans, scans_per_s=n_scans / (sum(scan_ms) / 1e3),
-        scan_ms_p50=float(np.percentile(scan_ms, 50)),
-        scan_ms_p99=float(np.percentile(scan_ms, 99)),
-        per_scan=dict(blocks_read=per_scan.blocks_read / n_scans,
-                      runs_touched=per_scan.runs_touched_range / n_scans),
-        seek_stats={k: v for k, v in dataclasses.asdict(
-            st1.delta(st0)).items() if v},
+        seeks=len(got_seeks), scans=len(got_scans),
         view_scans=per_scan.view_scans, view_fallbacks=(
             per_scan.view_fallbacks + st1.delta(st0).view_fallbacks),
-        profile_50_scans=prof,
-        d2h_copies_per_scan=sum(c for n, c in copies.items()
-                                if "DtoH" in n) / 50,
-        h2d_copies_per_scan=sum(c for n, c in copies.items()
-                                if "HtoD" in n) / 50,
-        memtable_entries_at_scans=line5.get("memtable_entries"),
-        phase5_range={k: line5.get(k) for k in (
-            "seeks_per_s", "scans_per_s", "scan_ms_p50", "scan_ms_p99",
-            "per_scan", "d2h_copies_per_scan")},
         wrong_seeks=wrong_seeks, wrong_scans=wrong_scans)
     emit(views)
     if wrong_seeks or wrong_scans or wrong_after_flush \
             or views["view_fallbacks"] or not views["view_scans"]:
         bad.append("view answers differ from phase 5's, or fell back")
-    # ---- telemetry: eight of phase 5's waves, on and off in turns
+    # ---- telemetry: eight of phase 5's waves
     waves = list(itertools.islice(read_waves(
         seed, ctx["sorted_keys"], ctx["live"], ctx["deleted"]), 1, 9))
-    secs = timed_waves(torch, store, waves, ("on", "off"), lambda m: setattr(
-        store.config, "telemetry", tel if m == "on" else None))
+    secs = checked_waves(store, waves, "telemetry")
     store.config.telemetry = None
     hist = tel.histogram("multi_get")
-    wave_keys = sum(q.size for q, _ in waves)
     pct = {}
     for p in (50, 99):
-        store_ns, host_ns = hist.percentile(p), nearest_rank(secs["on"], p) \
-            * 1e9
+        store_ns, host_ns = hist.percentile(p), nearest_rank(secs, p) * 1e9
         pct[f"p{p}"] = dict(store_ms=store_ns / 1e6, host_ms=host_ns / 1e6,
                             bucket_gap=bucket_of(int(host_ns))
                             - bucket_of(int(store_ns)))
-    kinds = {}
-    for e in tel.trace.dump():
-        kinds[e.kind] = kinds.get(e.kind, 0) + 1
     telemetry = dict(
         phase="subsystems", part="telemetry", waves=len(waves),
-        multi_get=pct, store_multi_get_samples=hist.n,
-        keys_per_s_on=wave_keys / sum(secs["on"]),
-        keys_per_s_off=wave_keys / sum(secs["off"]),
-        event_counts=kinds,
-        spans={op: dict(count=d["count"], p50_ms=d["p50_ns"] / 1e6,
-                        max_ms=d["max_ns"] / 1e6)
-               for op, d in tel.summary().items()})
+        multi_get=pct, store_multi_get_samples=hist.n)
     emit(telemetry)
     if hist.n != len(waves) or any(abs(v["bucket_gap"]) > 1
                                    for v in pct.values()):
         bad.append("the store's multi_get histogram disagrees with the host")
-    # ---- paranoid reads: the same waves, plain and paranoid in turns
+    # ---- paranoid reads: the same waves
     runs = sum(1 for lvl in store._levels for r in lvl if len(r))
     passes = dict(run_mod.VERIFY_PASSES)
-    secs = timed_waves(torch, store, waves, ("plain", "paranoid"),
-                       lambda m: setattr(store.config, "paranoid_checks",
-                                         m == "paranoid"))
+    store.config.paranoid_checks = True
+    checked_waves(store, waves, "paranoid")
     store.config.paranoid_checks = False
     batch_passes = run_mod.VERIFY_PASSES["batch"] - passes["batch"]
     paranoid = dict(
         phase="subsystems", part="paranoid", waves=len(waves), runs=runs,
-        keys_per_s_plain=wave_keys / sum(secs["plain"]),
-        keys_per_s_paranoid=wave_keys / sum(secs["paranoid"]),
-        wave_ms_p50=dict(plain=float(np.percentile(secs["plain"], 50) * 1e3),
-                         paranoid=float(np.percentile(secs["paranoid"], 50)
-                                        * 1e3)),
         verify_passes_per_wave=batch_passes / len(waves),
-        verify_passes_per_run_per_wave=batch_passes / len(waves) / runs,
         single_block_verifies=run_mod.VERIFY_PASSES["block"]
         - passes["block"])
     emit(paranoid)
@@ -2058,9 +1679,7 @@ def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
     except rt.core.CorruptionError as e:
         caught = (e.run_id, e.block_id)
     store.config.paranoid_checks = False
-    t = time.perf_counter()
     report = store.scrub()
-    scrub_s = time.perf_counter() - t
     reported = [(r["run_id"], r["bad_blocks"]) for r in report
                 if r["bad_blocks"]]
     faults = dict(
@@ -2068,7 +1687,7 @@ def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
         injected=injected, fired=fired, next_wave_correct=after_clear_ok,
         corrupted=dict(level=deep, run_entries=len(run), block=bid,
                        block_entries=hi - lo),
-        corruption_caught=caught, scrub_reported=reported, scrub_s=scrub_s,
+        corruption_caught=caught, scrub_reported=reported,
         corruption_events=sum(1 for e in tel.trace.dump()
                               if e.kind == "corruption"))
     emit(faults)
@@ -2076,21 +1695,16 @@ def subsystems_phase(torch, rt, ops, seed: int, ctx: dict) -> dict:
             or not after_clear_ok or caught != (run.run_id, bid) \
             or reported != [(run.run_id, [bid])]:
         bad.append("faults")
-    store_launches = ops.launch_counts()
     ctx.clear()
     del store, view, view2, run
     torch.cuda.empty_cache()
     # ---- the online tuner on YCSB workload A
-    tuner, tuner_bad = tuner_part(torch, rt, seed)
+    tuner, tuner_bad = tuner_part(rt, seed)
     emit(dict(phase="subsystems", part="tuner", **tuner))
     bad += tuner_bad
     launches = ops.launch_counts()
     out = dict(phase="subsystems", part="summary",
-               s=time.perf_counter() - t_phase,
-               launches={k: launches[k] for k in STORE_KERNELS},
-               launches_on_phase5_store={k: store_launches[k]
-                                         for k in STORE_KERNELS},
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+               launches={k: launches[k] for k in STORE_KERNELS})
     emit(out)
     if not all(launches[k] for k in STORE_KERNELS):
         bad.append(f"store kernels not launched: {launches}")
@@ -2156,76 +1770,35 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
     8 MiB LRU block cache and a pinned L0 of 16 MiB (four 4 MiB write
     buffers, L0 at its compaction trigger: the paper's pinned first
     level); the same read waves through the cache; then a crash while the
-    pipeline is busy, and recovery."""
+    pipeline is busy, and recovery, whose scrub of every run raises on a
+    bad block."""
     cfg = rt.LSMConfig(**DB_BENCH, async_compaction=True,
                        compaction_workers=1, cache_bytes=8 << 20,
                        cache_policy="lru", pin_l0_bytes=16 << 20)
     store = rt.LSMStore(cfg)   # cuda:0
-    torch.cuda.reset_peak_memory_stats()
     keys, deleted = fill_workload(seed, n_entries)
     sorted_keys = np.sort(keys)
     live = np.setdiff1d(keys, deleted)
-    # worker time inside flushes and compactions (device synced there),
-    # and foreground time inside the cache's accounting
-    spent = {"bg_flush": 0.0, "compaction": 0.0, "cache_accounting": 0.0}
-
-    def timed(name, fn, sync=True):
-        def wrapper(*args):
-            t = time.perf_counter()
-            out = fn(*args)
-            if sync:
-                torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t
-            return out
-        return wrapper
-
-    store._bg_flush = timed("bg_flush", store._bg_flush)
-    store._apply = timed("compaction", store._apply)
-    store.block_cache.read_blocks = timed(
-        "cache_accounting", store.block_cache.read_blocks, sync=False)
     ops.reset_launch_counts()
     with launches_by_thread(bloom, merge) as by_thread:
-        chunk = min(500_000, -(-keys.size // 2))
-        starts = list(range(0, keys.size, chunk))
-        t0 = time.perf_counter()
-        for i in starts[:-1]:
-            kc = keys[i:i + chunk]
-            store.put_batch(kc.tolist(), user_values(kc))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        quiesce(store)
-        torch.cuda.synchronize()
-        drained_s = time.perf_counter() - t0
-        load_stats = store.stats
-        load_spent = dict(spent)
-        kc = keys[starts[-1]:]
-        load_profile = profile_window(torch, lambda: (store.put_batch(
-            kc.tolist(), user_values(kc)), quiesce(store)),
-            by_kernel=True)
+        fill(store, keys)
         store.delete_batch(deleted.tolist())
         quiesce(store)
         torch.cuda.synchronize()
+        load_stats = store.stats
         digest = tree_digest(store)
         memtable_entries = len(store.memtable)
-        load_launches = dict(by_thread)
         # the same read waves as phase 5, through the cache
         before = store.stats
-        cache_before = spent["cache_accounting"]
-        wave_s, checked = [], 0
+        checked = 0
         for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
                                                  deleted)):
-            t = time.perf_counter()
             got = store.multi_get(q.tolist())
-            dt = time.perf_counter() - t
             if got != want:
                 bad = sum(g != x for g, x in zip(got, want))
                 raise AssertionError(f"durability wave {w}: {bad} wrong")
-            if w:
-                wave_s.append(dt)
-                checked += q.size
+            checked += q.size
         reads = store.stats.delta(before)
-        cache_s = spent["cache_accounting"] - cache_before
-        cache = store.cache_summary()
         # a crash while the pipeline is busy: 500,000 writes (half
         # overwrites of live keys, half new keys) rotate into the queue
         # (held there: the worker would keep up), flush() rotates and
@@ -2241,12 +1814,10 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
         batch = np.concatenate([over, new])
         crng.shuffle(batch)
         store._scheduler.pause()
-        t = time.perf_counter()
         for i in range(0, batch.size, 50_000):
             kc = batch[i:i + 50_000]
             store.put_batch(kc.tolist(), salted_values(kc, 1))
         store.flush()
-        write_s = time.perf_counter() - t
         queued_at_flush = [len(store._imm), store._scheduler.pending()]
         untouched = np.setdiff1d(live, over)
         unsynced = np.concatenate([
@@ -2256,31 +1827,9 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
         unsynced_in_wal = [len(store.memtable), store.wal._synced_upto]
         queued_at_crash = [len(store._imm), store._scheduler.pending()]
         store._scheduler.resume()
-        split = {}
-
-        def split_timed(name, fn):
-            def wrapper(*args):
-                t = time.perf_counter()
-                out = fn(*args)
-                torch.cuda.synchronize()
-                split[name] = (time.perf_counter() - t, out)
-                return out
-            return wrapper
-
-        store._consolidate_imm_wal = split_timed("wal_replay",
-                                                 store._consolidate_imm_wal)
-        store.scrub = split_timed("scrub", store.scrub)
-        t = time.perf_counter()
         store.crash()
-        drain_s = time.perf_counter() - t
         pins_after_crash = store.manifest.total_pin_refs()
-        t = time.perf_counter()
         store.recover()
-        torch.cuda.synchronize()
-        recover_s = time.perf_counter() - t
-        del store._consolidate_imm_wal, store.scrub
-        report = split["scrub"][1]
-        runs = [r for lvl in store._levels for r in lvl]
         # every fsynced write reads back its last value, the unsynced tail
         # its previous one
         prev = {int(k): v for k, v in zip(batch, salted_values(batch, 1))}
@@ -2290,14 +1839,12 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
         rest = crng.choice(rest, min(1_500_000, rest.size // 2),
                            replace=False)
         dead = crng.choice(deleted, min(50_000, deleted.size), replace=False)
-        t = time.perf_counter()
         wrong = dict(
             fsynced_batch=checked_reads(store, batch,
                                         salted_values(batch, 1)),
             unsynced=checked_reads(store, unsynced, want_unsynced),
             rest=checked_reads(store, rest, user_values(rest)),
             deleted=checked_reads(store, dead, [None] * dead.size))
-        verify_s = time.perf_counter() - t
         health = dict(degraded=store.degraded,
                       bg_retries=store.stats.bg_retries,
                       bg_gave_up=store.stats.bg_gave_up,
@@ -2318,53 +1865,29 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
                          "cache_bytes", "cache_policy", "pin_l0_bytes",
                          "slowdown_trigger", "stall_trigger",
                          "memtable_bytes", "block_size")},
-        load_timed_entries=starts[-1], load_s=load_s,
-        load_entries_per_s=starts[-1] / load_s,
-        load_drained_s=drained_s,
-        load_drained_entries_per_s=starts[-1] / drained_s,
-        worker_flush_s=load_spent["bg_flush"],
-        worker_compaction_s=load_spent["compaction"],
-        stall_ns=load_stats.stall_ns, write_stalls=load_stats.write_stalls,
-        write_slowdowns=load_stats.write_slowdowns,
         bg_flushes=load_stats.bg_flushes,
         bg_compactions=load_stats.bg_compactions,
-        load_profile_last_chunk=dict(entries=int(kc.size), **load_profile),
-        load_launches_by_thread=load_launches,
         tree_digest_equals_phase5=(None if phase5 is None
                                    else digest == phase5["tree_digest"]),
         memtable_entries=memtable_entries,
         levels_in_use=len([lvl for lvl in store._levels if lvl]),
-        read_keys=checked, read_s=sum(wave_s),
-        multi_get_keys_per_s=checked / sum(wave_s),
-        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
-        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
-        cache_accounting_s=cache_s,
+        read_keys=checked,
         read_cache_hit_blocks=reads.cache_hit_blocks,
         read_cache_miss_blocks=reads.cache_miss_blocks,
-        read_blocks_read=reads.blocks_read, cache=cache,
-        phase5_read_blocks_read=(None if phase5 is None else
-                                 phase5["read_stats"].get("blocks_read", 0)),
-        crash=dict(writes=int(batch.size), write_s=write_s,
-                   queued_at_flush=queued_at_flush,
+        read_blocks_read=reads.blocks_read,
+        phase5_read_blocks_read=(None if phase5 is None
+                                 else phase5["read_blocks_read"]),
+        crash=dict(writes=int(batch.size), queued_at_flush=queued_at_flush,
                    unsynced_writes=int(unsynced.size),
                    memtable_and_synced_bytes_at_crash=unsynced_in_wal,
                    queued_at_crash=queued_at_crash,
-                   drain_s=drain_s, pins_after_crash=pins_after_crash,
-                   recover_s=recover_s,
-                   wal_replay_s=split["wal_replay"][0],
-                   wal_replay_records=split["wal_replay"][1],
-                   scrub_s=split["scrub"][0],
-                   scrub_runs=len(report),
-                   scrub_gb=sum(r.data_bytes for r in runs) / 1e9,
-                   scrub_bad_blocks=sum(len(r["bad_blocks"])
-                                        for r in report),
+                   pins_after_crash=pins_after_crash,
                    verified_keys=int(batch.size + unsynced.size + rest.size
                                      + dead.size),
-                   verify_s=verify_s, wrong=wrong, health=health,
+                   wrong=wrong, health=health,
                    write_after_recovery=after_ok),
         launches={k: launches[k] for k in STORE_KERNELS},
-        launches_by_thread=dict(by_thread),
-        max_memory_allocated=torch.cuda.max_memory_allocated())
+        launches_by_thread=dict(by_thread))
     emit(out)
     bad = []
     if phase5 is not None and not out["tree_digest_equals_phase5"]:
@@ -2383,8 +1906,6 @@ def durability_phase(torch, rt, ops, bloom, merge, seed: int,
     if health != dict(degraded=False, bg_retries=0, bg_gave_up=0, pins=0) \
             or pins_after_crash:
         bad.append(f"health {health}")
-    if out["crash"]["scrub_bad_blocks"]:
-        bad.append("bad blocks")
     if not all(launches[k] for k in STORE_KERNELS):
         bad.append(f"store kernels not launched: {launches}")
     off_worker = {k: v for k, v in by_thread.items()
@@ -2413,15 +1934,14 @@ def shard_oracle_state(ops, db):
     return run_keys, np.concatenate(mem_keys), mem_items
 
 
-def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
-                         n_entries: int, phase5_reads=None,
-                         phase6=None) -> dict:
+def sharded_dbbench_part(rt, ops, bloom, merge, seed: int,
+                         n_entries: int, phase5_reads=None) -> dict:
     """(a) Phase 5's fillrandom on four shards under one budget of four
     workers (``benchmarks/micro_dbbench.py``'s sharded lane), LevelDB's
-    defaults per shard, default uniform splitters over the u64 space; the
-    load timed until every shard quiesces; then phase 5's read waves,
-    seeks and scans, every answer checked against oracles over the sharded
-    store's own state and held against phase 5's."""
+    defaults per shard, default uniform splitters over the u64 space;
+    then phase 5's read waves, seeks and scans, every answer checked
+    against oracles over the sharded store's own state and held against
+    phase 5's."""
     cfg = rt.LSMConfig(**DB_BENCH, shards=4, async_compaction=True,
                        compaction_workers=4)
     db = rt.core.make_store(cfg)     # cuda:0
@@ -2429,34 +1949,8 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
     keys, deleted = fill_workload(seed, n_entries)
     sorted_keys = np.sort(keys)
     live = np.setdiff1d(keys, deleted)
-    spent = {"flush": [0.0] * n, "compaction": [0.0] * n}
-
-    def timed(kind, i, fn):
-        def wrapper(*args):
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            spent[kind][i] += time.perf_counter() - t
-            return out
-        return wrapper
-
-    for i, s in enumerate(db.shards):
-        s._bg_flush = timed("flush", i, s._bg_flush)
-        s._apply = timed("compaction", i, s._apply)
     with launches_by_thread(bloom, merge) as by_thread:
-        chunk = min(500_000, -(-keys.size // 2))
-        starts = list(range(0, keys.size, chunk))
-        t0 = time.perf_counter()
-        for i in starts[:-1]:
-            kc = keys[i:i + chunk]
-            db.put_batch(kc.tolist(), user_values(kc))
-        load_s = time.perf_counter() - t0
-        quiesce(db)
-        torch.cuda.synchronize()
-        drained_s = time.perf_counter() - t0
-        load_spent = {k: list(v) for k, v in spent.items()}
-        kc = keys[starts[-1]:]
-        db.put_batch(kc.tolist(), user_values(kc))
+        fill(db, keys)
         db.delete_batch(deleted.tolist())
         quiesce(db)
         load_launches = dict(by_thread)
@@ -2467,32 +1961,19 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
                                     for r in lvl),
                         levels=[sum(len(r) for r in lvl)
                                 for lvl in s._levels],
-                        run_device_bytes=run_device_bytes(s),
                         memtable_entries=len(s.memtable),
-                        worker_flush_s=load_spent["flush"][si],
-                        worker_compaction_s=load_spent["compaction"][si],
                         bg_flushes=s.stats.bg_flushes,
-                        bg_compactions=s.stats.bg_compactions,
-                        stall_ns=s.stats.stall_ns)
+                        bg_compactions=s.stats.bg_compactions)
                    for si, s in enumerate(db.shards)]
     # phase 5's read waves
-    wave_s, checked = [], 0
+    checked = 0
     for w, (q, want) in enumerate(read_waves(seed, sorted_keys, live,
                                              deleted)):
-        t = time.perf_counter()
         got = db.multi_get(q.tolist())
-        dt = time.perf_counter() - t
         if got != want:
             bad = sum(g != x for g, x in zip(got, want))
             raise AssertionError(f"sharded wave {w}: {bad} wrong answers")
-        if w:
-            wave_s.append(dt)
-            checked += q.size
-    waves3 = [q for w, (q, _) in zip(range(3), read_waves(
-        seed, sorted_keys, live, deleted))]
-    prof = profile_window(torch, lambda: [db.multi_get(q.tolist())
-                                          for q in waves3])
-    copies = prof.pop("copies", {})
+        checked += q.size
     # phase 5's seeks and scans (drawn here when phase 5 did not run),
     # and scans and seeks from just below every splitter
     if phase5_reads is not None:
@@ -2510,14 +1991,9 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
     edge = np.concatenate([live[max(0, j - 60):j:6] for j in
                            np.searchsorted(live, np.asarray(
                                db.splitters, dtype=np.uint64)).tolist()])
-    t = time.perf_counter()
     got_seeks = [db.seek(int(a)) for a in seek_starts.tolist()]
-    seek_s = time.perf_counter() - t
-    scan_ms, got_scans = [], []
-    for a, m in zip(scan_starts.tolist(), lengths.tolist()):
-        t = time.perf_counter()
-        got_scans.append(db.scan(a, m))
-        scan_ms.append((time.perf_counter() - t) * 1e3)
+    got_scans = [db.scan(a, m) for a, m in zip(scan_starts.tolist(),
+                                               lengths.tolist())]
     edge_scans = [db.scan(int(a), 100) for a in edge.tolist()]
     edge_seeks = [db.seek(int(a) + 1) for a in edge.tolist()]
     run_keys, mem_keys, mem_items = shard_oracle_state(ops, db)
@@ -2598,30 +2074,9 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
                          "memtable_bytes", "block_size", "bits_per_key",
                          "l0_compaction_trigger")},
         splitters=[str(x) for x in db.splitters],
-        load_timed_entries=starts[-1], load_s=load_s,
-        load_entries_per_s=starts[-1] / load_s,
-        load_drained_s=drained_s,
-        load_drained_entries_per_s=starts[-1] / drained_s,
-        phase6_one_shard_drained_entries_per_s=(
-            None if phase6 is None
-            else phase6["load_drained_entries_per_s"]),
         per_shard=shards_line, levels_in_use=db.num_levels_in_use,
-        run_device_bytes=run_device_bytes(db),
-        load_launches_by_thread=load_launches, launching_workers=workers,
-        read_keys=checked, read_s=sum(wave_s),
-        multi_get_keys_per_s=checked / sum(wave_s),
-        wave_ms_p50=float(np.percentile(wave_s, 50) * 1e3),
-        wave_ms_p99=float(np.percentile(wave_s, 99) * 1e3),
-        read_profile_3_waves=prof,
-        d2h_copies_per_wave=sum(c for k, c in copies.items()
-                                if "DtoH" in k) / 3,
-        h2d_copies_per_wave=sum(c for k, c in copies.items()
-                                if "HtoD" in k) / 3,
-        seeks=len(got_seeks), seeks_per_s=len(got_seeks) / seek_s,
-        scans=len(got_scans), scans_per_s=len(got_scans)
-        / (sum(scan_ms) / 1e3),
-        scan_ms_p50=float(np.percentile(scan_ms, 50)),
-        scan_ms_p99=float(np.percentile(scan_ms, 99)),
+        launching_workers=workers, read_keys=checked,
+        seeks=len(got_seeks), scans=len(got_scans),
         splitter_scans=len(edge_scans), scans_across_shards=across,
         wrong=wrong, versus_phase5=vs5,
         health=dict(degraded=db.degraded,
@@ -2644,7 +2099,7 @@ def sharded_dbbench_part(torch, rt, ops, bloom, merge, seed: int,
     return out, bad
 
 
-def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
+def rebalance_part(rt, seed: int, n_keys: int = 1_000_000,
                    n_ops: int = 1 << 20, batch: int = 4096) -> tuple:
     """(b) YCSB's ``hotspot`` (``benchmarks/ycsb.py``'s skew gauntlet: 90%
     of operations on the first tenth of the key space) on four shards of
@@ -2658,12 +2113,10 @@ def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
     oracle = rt.LSMStore(rt.LSMConfig(**DB_BENCH))
     val0 = bytes(range(100))
     load = np.arange(n_keys, dtype=np.uint64)
-    t = time.perf_counter()
     for i in range(0, n_keys, batch):
         db.put_batch(load[i:i + batch].tolist(), val0)
     db.flush()
     quiesce(db)
-    preload_s = time.perf_counter() - t
     for i in range(0, n_keys, batch):
         oracle.put_batch(load[i:i + batch].tolist(), val0)
     oracle.flush()
@@ -2676,27 +2129,8 @@ def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
     stream = np.where(hot, rng.integers(0, n_keys // 10, n_ops,
                                         dtype=np.uint64),
                       rng.integers(0, n_keys, n_ops, dtype=np.uint64))
-    events = []
-    inner = db._rebalance_to
-
-    def measured(*args):
-        torch.cuda.synchronize()
-        m0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter()
-        done = inner(*args)
-        torch.cuda.synchronize()
-        events.append(dict(landed=done, s=time.perf_counter() - t1,
-                           device_bytes_before=m0,
-                           device_bytes_peak=torch.cuda.max_memory_allocated(),
-                           device_bytes_after=torch.cuda.memory_allocated(),
-                           splitters=[str(x) for x in db.splitters]))
-        return done
-
-    db._rebalance_to = measured
     loads = [(0, db.shard_load_ops())]
     wrong_reads = reads = 0
-    t = time.perf_counter()
     for wi, i in enumerate(range(0, n_ops, batch)):
         wave = stream[i:i + batch].tolist()
         if wi % 2 == 0:
@@ -2709,11 +2143,9 @@ def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
                                zip(got, oracle.multi_get(wave)))
             reads += len(wave)
         loads.append((db.rebalances, db.shard_load_ops()))
-    traffic_s = time.perf_counter() - t
     db.flush()
     quiesce(db)
     oracle.flush()
-    del db._rebalance_to
 
     def imbalance(a, b):
         d = [y - x for x, y in zip(a, b)]
@@ -2740,19 +2172,14 @@ def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
     db.release_snapshot(snap)
     pins = [s.manifest.total_pin_refs() for s in db.shards]
     epoch, splitters = db._routing.epoch, db.splitters
-    t = time.perf_counter()
     db.crash()
     db.recover()
-    torch.cuda.synchronize()
-    recover_s = time.perf_counter() - t
     wrong_after_recovery = all_keys_wrong()
     routing_kept = (db._routing.epoch, db.splitters) == (epoch, splitters)
     out = dict(
         part="b_rebalance", shards=4, keys=n_keys, operations=n_ops,
-        batch=batch, reads=reads, preload_s=preload_s,
-        traffic_s=traffic_s, ops_per_s=n_ops / traffic_s,
+        batch=batch, reads=reads,
         rebalances=db.rebalances, migrated_entries=db.migrated_entries,
-        migration_s=dict(db.migration_s), rebalance_events=events,
         initial_splitters=[str(x) for x in
                            rt.core.uniform_splitters(4, n_keys)],
         final_splitters=[str(x) for x in db.splitters],
@@ -2761,7 +2188,7 @@ def rebalance_part(torch, rt, seed: int, n_keys: int = 1_000_000,
         load_share_max_over_mean_after=share_after,
         wrong_reads=wrong_reads, wrong_after_traffic=wrong_after_traffic,
         snapshot_unchanged=snap_after == snap_before,
-        pins_after_release=pins, recover_s=recover_s,
+        pins_after_release=pins,
         wrong_after_recovery=wrong_after_recovery,
         routing_survived_recovery=routing_kept)
     bad = []
@@ -2824,31 +2251,16 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
             ck_store.store_config(), shards=shards,
             shard_splitters=(n_chunks // 2,) if shards > 1 else None)
         st = CheckpointStore(lsm, device=dev)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         st.save(0, params)
-        torch.cuda.synchronize()
-        save0_s = time.perf_counter() - t
         w0, k0 = st.stats_chunks_written, st.stats_deltas_skipped
         tree1 = ck_store._unflatten(params, iter(
             [step1[p] for p, _ in ck_store._leaf_paths(params)]))
-        t = time.perf_counter()
         st.save(1, tree1)
-        torch.cuda.synchronize()
-        save1_s = time.perf_counter() - t
         written = st.stats_chunks_written - w0
         skipped = st.stats_deltas_skipped - k0
-        t = time.perf_counter()
         st.crash()
-        torch.cuda.synchronize()
-        recover_s = time.perf_counter() - t
         latest = st.latest_step()
-        got, restore_s = {}, {}
-        for step in (1, 0):
-            t = time.perf_counter()
-            got[step] = st.restore(step)
-            torch.cuda.synchronize()
-            restore_s[step] = time.perf_counter() - t
+        got = {step: st.restore(step) for step in (1, 0)}
         # single-latest retention: step 0's manifest reads the chunks its
         # unchanged leaves share with step 1, and the changed leaves'
         # slots now hold step 1's bytes
@@ -2861,14 +2273,8 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
         runs.append(dict(
             shards=shards, layers=f"{layers} of {cfg.n_layers}",
             bytes=nbytes, leaves=len(flat), changed_leaves=changed,
-            save0_s=save0_s,
-            save0_mb_per_s=nbytes / 1e6 / save0_s, save1_s=save1_s,
             chunks=n_chunks, chunks_written_step1=written,
-            chunks_skipped_step1=skipped, crash_recover_s=recover_s,
-            latest_step=latest,
-            restore_s={str(k): v for k, v in restore_s.items()},
-            restore_mb_per_s={str(k): nbytes / 1e6 / v
-                              for k, v in restore_s.items()},
+            chunks_skipped_step1=skipped, latest_step=latest,
             bit_exact={str(k): v for k, v in exact.items()},
             levels_in_use=levels, run_device_bytes=run_device_bytes(st.db),
             entries_by_shard=[s.total_entries for s in
@@ -2891,18 +2297,16 @@ def checkpoint_part(torch, rt, seed: int, dev) -> tuple:
 
 
 def sharded_phase(torch, rt, ops, bloom, merge, seed: int, n_entries: int,
-                  phase5_reads=None, phase6=None) -> dict:
+                  phase5_reads=None) -> dict:
     """Phase 6b: the sharded facade's main paths (db_bench on four shards,
     rebalancing under a hotspot, checkpoints), with the store kernels'
     launches counted from zero."""
     ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    a, bad_a = sharded_dbbench_part(torch, rt, ops, bloom, merge, seed,
-                                    n_entries, phase5_reads, phase6)
+    a, bad_a = sharded_dbbench_part(rt, ops, bloom, merge, seed,
+                                    n_entries, phase5_reads)
     emit({"phase": "sharded", **a})
     torch.cuda.empty_cache()
-    b, bad_b = rebalance_part(torch, rt, seed)
+    b, bad_b = rebalance_part(rt, seed)
     emit({"phase": "sharded", **b})
     torch.cuda.empty_cache()
     c, bad_c = checkpoint_part(torch, rt, seed, torch.device("cuda:0"))
@@ -2911,11 +2315,8 @@ def sharded_phase(torch, rt, ops, bloom, merge, seed: int, n_entries: int,
     launches = ops.launch_counts()
     plain = dict(ops.PLAIN_CALLS)
     out = dict(phase="sharded", part="summary",
-               s=time.perf_counter() - t,
-               checkpoint_save0_mb_per_s=c["runs"][0]["save0_mb_per_s"],
                launches={k: launches[k] for k in STORE_KERNELS},
-               plain_calls={k: v for k, v in plain.items() if v},
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+               plain_calls={k: v for k, v in plain.items() if v})
     emit(out)
     bad = bad_a + bad_b + bad_c
     if not all(launches[k] for k in STORE_KERNELS):
@@ -2962,29 +2363,12 @@ def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
     gen = 16
     waves = [("cold", [shared] * 4), ("warm", [shared] * 4),
              ("mixed", [other] * 2 + [shared] * 2)][:n_waves]
-    # host seconds each shard's worker spends in flushes and compactions,
-    # which overlap the requests (not device-synced: no perturbation)
     db = eng.kv.db if eng.kv is not None else None
     shards = getattr(db, "shards", [db]) if db is not None else []
-    busy = [0.0] * len(shards)
-
-    def worker_timed(fn, i):
-        def wrapper(*args):
-            t = time.perf_counter()
-            try:
-                return fn(*args)
-            finally:
-                busy[i] += time.perf_counter() - t
-        return wrapper
-
-    for i, sh in enumerate(shards):
-        sh._bg_flush = worker_timed(sh._bg_flush, i)
-        sh._bg_compact_one = worker_timed(sh._bg_compact_one, i)
     ops.reset_launch_counts()
     outs, per_wave = [], []
     for name, prompts in waves:
         backlog = sum(sh._scheduler.pending() for sh in shards)
-        busy0 = list(busy)
         t = time.perf_counter()
         out = eng.serve_batch([Request(p, gen) for p in prompts], extras)
         wall = time.perf_counter() - t
@@ -3000,10 +2384,7 @@ def serve_cell(torch, ops, dev, seed: int, cfg, phase: str,
             / sum(tm["decode_step_s"]),
             hits=st.get("hits", 0), pages_written=st.get("pages_written", 0),
             pages_deduped=st.get("pages_deduped", 0),
-            store_jobs_queued_at_start=backlog,
-            store_worker_busy_ms=sum(busy) * 1e3 - sum(busy0) * 1e3,
-            store_worker_busy_ms_by_shard=[(b - b0) * 1e3 for b, b0
-                                           in zip(busy, busy0)]))
+            store_jobs_queued_at_start=backlog))
         emit({"phase": f"{phase}_wave", **per_wave[-1]})
         outs.append(np.stack(out))
     launches = ops.launch_counts()
@@ -3354,8 +2735,8 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int,
     WSD, a checkpoint every 5 steps) through a CheckpointStore on the card:
     train(20) against train(12) + simulate_crash + restore at step 10 +
     train(10..20), every parameter and optimizer leaf by bits; the store
-    kernels' launches by thread, save and restore seconds.  ``mesh``: the
-    trainers' device mesh shape."""
+    kernels' launches by thread, the crash's and the restore's seconds.
+    ``mesh``: the trainers' device mesh shape."""
     from repro_torch.launch.sharding import full_tree
     from repro_torch.checkpoint import AsyncCheckpointer, CheckpointStore
     from repro_torch.configs import get_smoke
@@ -3363,27 +2744,14 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int,
     from repro_torch.launch.train import SimulatedHostFailure, Trainer
     from repro_torch.train import OptConfig
     cfg = get_smoke("smollm_135m")
-    saves = []
-
-    def timed_store():
-        st = CheckpointStore(device=dev)
-        save = st.save
-
-        def timed_save(step, tree):
-            t = time.perf_counter()
-            out = save(step, tree)
-            torch.cuda.synchronize()
-            saves.append(time.perf_counter() - t)
-            return out
-        st.save = timed_save
-        return st
 
     def mk():
         return Trainer(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
                                       total_steps=20, schedule="wsd"),
                        DataConfig(vocab=cfg.vocab, seq_len=32,
                                   global_batch=4),
-                       store=timed_store(), checkpoint_every=5, mesh=mesh,
+                       store=CheckpointStore(device=dev), checkpoint_every=5,
+                       mesh=mesh,
                        device=dev)
 
     ops.reset_launch_counts()
@@ -3423,7 +2791,7 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int,
                restored_step_leaf=[list(step_leaf.shape),
                                    str(step_leaf.dtype), int(step_leaf)],
                bit_exact=not differ, differing_leaves=differ[:8],
-               saves=len(saves), save_s=saves, crash_recover_s=crash_s,
+               crash_recover_s=crash_s,
                restore_s=restore_s, part_s=time.perf_counter() - t0,
                launches={k: launches[k] for k in STORE_KERNELS},
                launches_by_thread=dict(sorted(by_thread.items())),
@@ -3441,14 +2809,12 @@ def train_resume_part(torch, ops, bloom, merge, dev, seed: int,
     return out, bad
 
 
-def train_phase(torch, ops, bloom, merge, dev, seed: int,
-                phase6b=None) -> dict:
+def train_phase(torch, ops, bloom, merge, dev, seed: int) -> dict:
     """Phase 9: training on the card (smollm_135m at full width, every
     family's step against the CPU, crash and bit-exact resume through the
     device checkpoint store).  The full-width state is not checkpointed
-    here: at phase 6b c's rate (its one-shard save of the parameters
-    alone, this call's when phase 6b ran) the parameters with AdamW's m
-    and v, three times the bytes, would take about three times as long."""
+    here: the parameters with AdamW's m and v are three times the bytes
+    of phase 6b c's one-shard save of the parameters alone."""
     t = time.perf_counter()
     a, bad_a = train_full_part(torch, dev, seed)
     emit({"phase": "train", **a})
@@ -3461,10 +2827,7 @@ def train_phase(torch, ops, bloom, merge, dev, seed: int,
     plain = {k: v for k, v in ops.PLAIN_CALLS.items() if v}
     out = dict(phase="train", part="summary", s=time.perf_counter() - t,
                launches=launches, plain_calls=plain,
-               full_width_state_mb=a["params"] * 12 / 1e6,
-               full_width_save_estimate_s=None if phase6b is None
-               else a["params"] * 12 / 1e6
-               / phase6b["checkpoint_save0_mb_per_s"])
+               full_width_state_mb=a["params"] * 12 / 1e6)
     emit(out)
     bad = bad_a + bad_b + bad_c
     if plain:
@@ -3772,11 +3135,11 @@ print(json.dumps(out))
 """
 
 
-def start_dryrun_child(src: str) -> subprocess.Popen:
+def start_dryrun_child() -> subprocess.Popen:
     """The dry-run of the calibration cells and of qwen3_4b's decode_32k
     on the 16 x 16 mesh, in a process of its own (a fake process group of
     its own), which sees no card."""
-    env = dict(os.environ, PYTHONPATH=str(Path(src).resolve()),
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     return subprocess.Popen(
         [sys.executable, "-c", DRYRUN_CHILD,
@@ -3952,7 +3315,7 @@ def calibration_line(meas: dict, pred: dict) -> tuple:
     return line, bad
 
 
-def dryrun_phase(torch, ops, dev, seed: int, src: str) -> dict:
+def dryrun_phase(torch, ops, dev, seed: int) -> dict:
     """Phase 11: the dry-run held against the card.  A child process traces
     the three calibration cells on a fake (1, 1) mesh and qwen3_4b's
     decode_32k on the fake 16 x 16 mesh while this one runs the
@@ -3961,7 +3324,7 @@ def dryrun_phase(torch, ops, dev, seed: int, src: str) -> dict:
     PEAK_RATIO of the measured."""
     from repro_torch.launch.mesh import make_mesh
     t = time.perf_counter()
-    child = start_dryrun_child(src)
+    child = start_dryrun_child()
     try:
         mesh = make_mesh((1, 1), dev)
         measured = [measure_cell(torch, ops, dev, mesh, seed, entry)
@@ -4102,16 +3465,15 @@ def launch_delta(ops, before: dict) -> dict:
     return {k: now[k] - before[k] for k in STORE_KERNELS}
 
 
-def policy_equivalence_part(torch, rt, ops, seed: int, i: int, policy: str,
+def policy_equivalence_part(rt, ops, seed: int, i: int, policy: str,
                             c: float) -> dict:
     """Phase 4's op sequence at 20,000 entries on a CUDA and a CPU store of
     one policy, at the reference comparison's geometry: the same tree,
     IOStats and answers, and every store kernel launched."""
-    t = time.perf_counter()
     before = ops.launch_counts()
     cfg = rt.LSMConfig(policy=policy, c=c, **POLICY_EQUIV_GEOMETRY)
     fields, stores, snaps = equivalence_run(
-        torch, rt, np.random.default_rng([seed, 13, i]),
+        rt, np.random.default_rng([seed, 13, i]),
         POLICY_EQUIV_ENTRIES, cfg)
     for s, snap in zip(stores, snaps):
         s.release_snapshot(snap)
@@ -4121,7 +3483,7 @@ def policy_equivalence_part(torch, rt, ops, seed: int, i: int, policy: str,
                entries=POLICY_EQUIV_ENTRIES, **fields,
                pins_after_release=[s.manifest.total_pin_refs()
                                    for s in stores],
-               launches=launches, s=time.perf_counter() - t)
+               launches=launches)
     emit(out)
     bad = [name for name in EQUIVALENCE_GATES if not out[name]]
     if out["pins_after_release"] != [0, 0]:
@@ -4148,34 +3510,15 @@ def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
     and deleted keys, a wave of absent keys and short scans, every answer
     checked against the numpy oracle; levels, runs, their device bytes,
     write amplification, delayed compactions and the read costs."""
-    t_part = time.perf_counter()
     before = ops.launch_counts()
     cfg = rt.LSMConfig(**{**DB_BENCH, "policy": policy, "c": c,
                           "bloom_allocation": "monkey"})
     store = rt.LSMStore(cfg)   # cuda:0
     torch.cuda.reset_peak_memory_stats()
     keys, deleted = fill_workload(seed, n_entries)
-    spent = [0.0]
-    apply = store._apply
-
-    def timed_apply(task):
-        t = time.perf_counter()
-        out = apply(task)
-        torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t
-        return out
-
-    store._apply = timed_apply
-    t0 = time.perf_counter()
-    for i in range(0, keys.size, 500_000):
-        kc = keys[i:i + 500_000]
-        store.put_batch(kc.tolist(), user_values(kc))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    fill(store, keys)
     store.delete_batch(deleted.tolist())
     store.flush()
-    torch.cuda.synchronize()
-    del store._apply, apply           # no reference cycle keeps it alive
     load_stats = store.stats
     sorted_keys = np.sort(keys)
     live = np.setdiff1d(keys, deleted)
@@ -4185,13 +3528,9 @@ def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
                               rng.choice(deleted, wave // 2)])
     want_present = user_values(present[:wave // 2]) + [None] * (wave // 2)
     absent = absent_keys(rng, sorted_keys, wave)
-    t = time.perf_counter()
     got_present = store.multi_get(present.tolist())
-    present_s = time.perf_counter() - t
     s0 = store.stats
-    t = time.perf_counter()
     got_absent = store.multi_get(absent.tolist())
-    absent_s = time.perf_counter() - t
     zero = store.stats.delta(s0)
     wrong = dict(present=sum(g != w for g, w in zip(got_present,
                                                    want_present)),
@@ -4200,9 +3539,7 @@ def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
                              rng.integers(0, 2**64 - 1, POLICY_SCANS // 2,
                                           dtype=np.uint64)])
     s1 = store.stats
-    t = time.perf_counter()
     got_scans = [store.scan(int(a), 10) for a in starts.tolist()]
-    scan_s = time.perf_counter() - t
     scans = store.stats.delta(s1)
     at = np.searchsorted(live, starts)
     wrong["scans"] = 0
@@ -4217,8 +3554,6 @@ def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
         policy=policy_label(policy, c), config=dataclasses.asdict(cfg),
         entries=int(keys.size), deleted=int(deleted.size), value_bytes=100,
         reduced=reduced_entries(n_entries, DB_BENCH_FULL),
-        load_s=load_s, load_entries_per_s=keys.size / load_s,
-        compaction_s=spent[0],
         levels_in_use=store.num_levels_in_use,
         eq6_predicted_levels=store.policy.predicted_levels(
             total * rt.core.types.entry_bytes(100), base)
@@ -4237,12 +3572,9 @@ def policy_dbbench_part(torch, rt, ops, seed: int, policy: str, c: float,
         scans=dict(count=int(starts.size), length=10,
                    runs_touched_per_scan=scans.runs_touched_range
                    / starts.size,
-                   blocks_read_per_scan=scans.blocks_read / starts.size,
-                   scans_per_s=starts.size / scan_s),
-        multi_get_keys_per_s=2 * wave / (present_s + absent_s),
+                   blocks_read_per_scan=scans.blocks_read / starts.size),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         wrong=wrong, launches=launch_delta(ops, before))
-    out["s"] = time.perf_counter() - t_part
     emit(out)
     del store, got_present, got_absent, got_scans
     torch.cuda.empty_cache()
@@ -4259,10 +3591,9 @@ def policies_phase(torch, rt, ops, seed: int) -> dict:
     one's db_bench at LevelDB's geometry; (c) the orderings that
     tests/test_system.py asserts, as found at this size (findings, not
     gates), and the store kernels' launches."""
-    t = time.perf_counter()
     ops.reset_launch_counts()
     for i, (policy, c) in enumerate(POLICY_SET):
-        policy_equivalence_part(torch, rt, ops, seed, i, policy, c)
+        policy_equivalence_part(rt, ops, seed, i, policy, c)
         torch.cuda.empty_cache()
     runs = {}
     for policy, c in POLICY_SET:
@@ -4298,9 +3629,7 @@ def policies_phase(torch, rt, ops, seed: int) -> dict:
                entries=POLICY_ENTRIES, orderings=orderings,
                levels={k: r["levels_in_use"] for k, r in runs.items()},
                write_amp={k: r["write_amp"] for k, r in runs.items()},
-               compaction_s={k: r["compaction_s"] for k, r in runs.items()},
-               launches={k: launches[k] for k in STORE_KERNELS},
-               s=time.perf_counter() - t)
+               launches={k: launches[k] for k in STORE_KERNELS})
     emit(out)
     return out
 
@@ -4321,9 +3650,6 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run after the device and "
                          f"build phases (all by default: {','.join(PHASES)})")
-    ap.add_argument("--src", default=str(ROOT / "src"),
-                    help="directory that holds the repro_torch package "
-                         "(this checkout's src/ by default)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4337,13 +3663,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    if MISSING_IMPORT is not None:
+        print(f"chip_smoke: portbench not found in {ROOT} "
+              f"({MISSING_IMPORT})", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch as rt
         from repro_torch import _build
         from repro_torch.kernels import attention, bloom, merge, ops
     except ImportError as e:
-        print(f"chip_smoke: repro_torch not found in {args.src} ({e})",
+        print(f"chip_smoke: repro_torch not found in {ROOT / 'src'} ({e})",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
@@ -4352,11 +3682,9 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "src": str(Path(rt.__file__).parent)})
+          "cuda": torch.version.cuda})
     t = time.perf_counter()
-    started = start_variant_builds(_build)
     built = _build.build_all(force=True)
-    variants, variant_ptxas = load_variants(_build, started)
     build_s = time.perf_counter() - t
     mma = tensor_core_instructions(_build)
     flash_mma = {n: c for n, c in mma.items()
@@ -4364,7 +3692,6 @@ def main() -> int:
     emit({"phase": "build", "built": built, "s": build_s,
           "ptxas": {n: ptxas_lines(log)
                     for n, log in _build.build_logs.items()},
-          "ptxas_probe_variants": variant_ptxas,
           "tensor_core_instructions": mma})
     if not flash_mma or not all(flash_mma.values()):
         raise AssertionError(f"bf16 flash attention without tensor-core "
@@ -4372,8 +3699,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rows = {}
     if "kernels" in phases:
-        rows.update(kernel_phase(torch, ops, bloom, merge, rng, dev,
-                                 variants))
+        rows.update(kernel_phase(torch, ops, bloom, merge, rng, dev))
     if "attention" in phases:
         rows.update(attention_rows(torch, attention, dev, args.seed))
         family_attention_rows(torch, attention, dev, args.seed)
@@ -4381,15 +3707,15 @@ def main() -> int:
     if "equivalence" in phases:
         equivalence_phase(torch, rt, rng, args.equiv_entries)
         torch.cuda.empty_cache()
-        async_equivalence(torch, rt, ops, rng, args.equiv_entries)
+        async_equivalence(rt, ops, rng, args.equiv_entries)
         torch.cuda.empty_cache()
         equivalence_subsystems(torch, rt, ops, rng, args.equiv_entries // 4)
         torch.cuda.empty_cache()
     launches, by_path, phase5, ctx = {}, {}, None, {}
     if "db_bench" in phases or "subsystems" in phases:
         # phase 5b runs on phase 5's store: alone, it loads it itself
-        phase5 = dbbench_phase(torch, rt, ops, bloom, rng, args.seed,
-                               args.entries, keep=ctx)
+        phase5 = dbbench_phase(torch, rt, ops, rng, args.seed, args.entries,
+                               keep=ctx)
         launches = ops.launch_counts()
         by_path["db_bench"] = {k: launches[k] for k in STORE_KERNELS}
         idle = [k for k in STORE_KERNELS if launches[k] == 0]
@@ -4401,20 +3727,18 @@ def main() -> int:
                                                  ctx)["launches"]
     ctx.clear()
     torch.cuda.empty_cache()
-    phase6 = None
     if "durability" in phases:
-        phase6 = durability_phase(torch, rt, ops, bloom, merge, args.seed,
-                                  args.entries, phase5)
-        by_path["durability"] = phase6["launches"]
+        by_path["durability"] = durability_phase(
+            torch, rt, ops, bloom, merge, args.seed, args.entries,
+            phase5)["launches"]
         torch.cuda.empty_cache()
-    phase6b = None
     if "sharded" in phases:
         if phase5 is not None and phase5_reads is None:
             raise AssertionError("phase 5's range reads were not kept for "
                                  "phase 6b's comparison")
-        phase6b = sharded_phase(torch, rt, ops, bloom, merge, args.seed,
-                                args.entries, phase5_reads, phase6)
-        by_path["sharded"] = phase6b["launches"]
+        by_path["sharded"] = sharded_phase(
+            torch, rt, ops, bloom, merge, args.seed, args.entries,
+            phase5_reads)["launches"]
         torch.cuda.empty_cache()
     served = None
     if "serve" in phases:
@@ -4434,13 +3758,13 @@ def main() -> int:
                                              args.seed)["launches"]
     if "train" in phases:
         by_path["train"] = train_phase(torch, ops, bloom, merge, dev,
-                                       args.seed, phase6b)["launches"]
+                                       args.seed)["launches"]
     if "mesh" in phases:
         by_path["mesh"] = mesh_phase(torch, ops, bloom, merge, attention, dev,
                                      args.seed, served)["launches"]
     if "dryrun" in phases:
-        by_path["dryrun"] = dryrun_phase(torch, ops, dev, args.seed,
-                                         args.src)["launches"]
+        by_path["dryrun"] = dryrun_phase(torch, ops, dev,
+                                         args.seed)["launches"]
     if "examples" in phases:
         by_path["examples"] = examples_phase(torch, ops, dev)["launches"]
     if "policies" in phases:

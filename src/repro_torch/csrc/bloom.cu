@@ -115,14 +115,13 @@ __device__ __forceinline__ void wait_for_previous_kernel() {
 // ---------------------------------------------------------------- probe
 constexpr int kProbeThreads = 256;  // threads a block, one key each
 constexpr int kProbeBlocksPerSm = 2048 / kProbeThreads;
-// Bit positions a key gathers together before it tests them.  chip_smoke.py
-// builds this source again with 1 (a dependent chain that stops at the
-// first clear bit) and with 8 (all k positions at once for k <= 8) and
-// times both beside this one.
-#ifndef BLOOM_PROBE_BATCH
-#define BLOOM_PROBE_BATCH 2
-#endif
-constexpr int kProbeBatch = BLOOM_PROBE_BATCH;
+// Bit positions a key gathers together before it tests them.  Two: an
+// absent key, the common case on the read path, finds a clear bit within
+// its first two positions three times in four at a half-full filter, so
+// one round trip of two independent loads settles most keys, where one
+// position a trip makes a member wait for k dependent loads and all k at
+// once makes every absent key pay for k.
+constexpr int kProbeBatch = 2;
 
 // One "maybe" byte a key.  A key's positions are gathered kProbeBatch at a
 // time, the batch's loads independent of each other, and the key stops

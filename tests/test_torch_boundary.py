@@ -32,6 +32,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + sorted((ROOT / "examples" / "torch").glob("*.py")) \
+    + sorted((ROOT / "portbench").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
